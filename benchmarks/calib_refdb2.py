@@ -20,7 +20,7 @@ import glob
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.io import regression as rg
 
 REF2 = "/root/reference/tests/2d_examples"
 REF3 = "/root/reference/tests/3d_examples"
@@ -50,7 +50,7 @@ def dtw_report(name, base, case, body, q, series):
 
 
 def run_beam(integrator="pk2"):
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case, s = ob.build_case(integrator=integrator)
     run = ob.make_run_chunk(case)
@@ -67,7 +67,7 @@ def run_beam(integrator="pk2"):
 
 
 def run_beam_ul():
-    from sphinxsys_tpu.cases import oscillating_beam_ul_2d as obul
+    from sphinxsys_jax.cases import oscillating_beam_ul_2d as obul
 
     case, beam = obul.build_case()
     s = obul.init_sim(case, beam)
@@ -81,7 +81,7 @@ def run_beam_ul():
 
 
 def run_aniso():
-    from sphinxsys_tpu.cases import anisotropic_beam_2d as ab
+    from sphinxsys_jax.cases import anisotropic_beam_2d as ab
 
     case, s = ab.build_case()
     run = ab.make_run_chunk(case)
@@ -96,7 +96,7 @@ def run_aniso():
 
 
 def run_three_ring():
-    from sphinxsys_tpu.cases import three_ring_impact_2d as tri
+    from sphinxsys_jax.cases import three_ring_impact_2d as tri
 
     case, s = tri.build_case()
     run = tri.make_run_chunk(case)
@@ -111,7 +111,7 @@ def run_three_ring():
 
 
 def run_taylor_bar():
-    from sphinxsys_tpu.cases import taylor_bar_ul_3d as tb
+    from sphinxsys_jax.cases import taylor_bar_ul_3d as tb
 
     case, col = tb.build_case()
     s = tb.init_sim(case, col)
@@ -125,7 +125,7 @@ def run_taylor_bar():
 
 
 def run_repose():
-    from sphinxsys_tpu.cases import repose_angle_3d as ra
+    from sphinxsys_jax.cases import repose_angle_3d as ra
 
     case, soil = ra.build_case()
     s = ra.init_sim(case, soil)
@@ -139,7 +139,7 @@ def run_repose():
 
 
 def run_cantilever():
-    from sphinxsys_tpu.cases import passive_cantilever_3d as pc
+    from sphinxsys_jax.cases import passive_cantilever_3d as pc
 
     case, body = pc.build_case()
     s = pc.init_sim(case, body)

@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import fish_fsi_2d as ff
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.cases import fish_fsi_2d as ff
+from sphinxsys_jax.io import regression as rg
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "fish")
 T_END = float(os.environ.get("FISH_T_END", "1.7"))

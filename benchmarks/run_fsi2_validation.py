@@ -20,8 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import fsi2
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.cases import fsi2
+from sphinxsys_jax.io import regression as rg
 
 REF_DB = "/root/reference/tests/2d_examples/test_2d_fsi2/regression_test_tool"
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "fsi2")

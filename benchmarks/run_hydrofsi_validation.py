@@ -16,7 +16,7 @@ if os.environ.get("HF_PLATFORM", "cpu") == "cpu":
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import hydrostatic_fsi_2d as hf
+from sphinxsys_jax.cases import hydrostatic_fsi_2d as hf
 
 dx = float(os.environ.get("HF_DX", "0.025"))
 t_end = float(os.environ.get("HF_TEND", "0.2"))

@@ -14,7 +14,7 @@ if os.environ.get("PIPE_PLATFORM", "cpu") == "cpu":
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import poiseuille_flow_shell_3d as pf
+from sphinxsys_jax.cases import poiseuille_flow_shell_3d as pf
 
 t_end = float(os.environ.get("PIPE_TEND", "2.0"))
 t0 = time.time()

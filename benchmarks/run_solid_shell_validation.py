@@ -18,7 +18,7 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-from sphinxsys_tpu.cases import solid_shell_coupling_3d as m  # noqa: E402
+from sphinxsys_jax.cases import solid_shell_coupling_3d as m  # noqa: E402
 
 
 def main():

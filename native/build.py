@@ -1,7 +1,7 @@
 """Build the native IO extension in-place (g++, CPython API; no pybind11).
 
 Usage:  python native/build.py
-Places _sphinxsys_fastio.so next to the sphinxsys_tpu package.
+Places _sphinxsys_fastio.so next to the sphinxsys_jax package.
 """
 
 import os

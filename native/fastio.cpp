@@ -65,7 +65,7 @@ static PyMethodDef Methods[] = {
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "_sphinxsys_fastio",
-    "native IO formatting for sphinxsys_tpu", -1, Methods,
+    "native IO formatting for sphinxsys_jax", -1, Methods,
 };
 
 PyMODINIT_FUNC PyInit__sphinxsys_fastio(void) {

@@ -15,8 +15,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import anisotropic_beam_2d as ab
-from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+from sphinxsys_jax.cases import anisotropic_beam_2d as ab
+from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import play_simbody_3d as ps
-from sphinxsys_tpu.physics import articulated as art
+from sphinxsys_jax.cases import play_simbody_3d as ps
+from sphinxsys_jax.physics import articulated as art
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import contact as ct
+from sphinxsys_jax.physics import contact as ct
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -14,9 +14,9 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 def test_shell_contact_factor_monotone_in_penetration():
     """A solid particle approaching a flat shell sheet: the factor must be
     zero beyond one spacing and grow monotonically as it approaches."""
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.core.state import make_solid_state
-    from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.core.state import make_solid_state
+    from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
 
     dx = 0.1
     ad = SPHAdaptation(spacing=dx, dim=3)
@@ -45,7 +45,7 @@ def test_shell_contact_factor_monotone_in_penetration():
 
 @pytest.fixture(scope="module")
 def collision_run():
-    from sphinxsys_tpu.cases import ball_shell_collision_3d as bs
+    from sphinxsys_jax.cases import ball_shell_collision_3d as bs
 
     case, ball = bs.build_case(dx=0.1)
     s = bs.init_sim(case, ball)
@@ -81,7 +81,7 @@ def test_no_penetration_through_shell(collision_run):
 
 
 def test_ball_deforms_on_impact(collision_run):
-    from sphinxsys_tpu.physics import solid as sd
+    from sphinxsys_jax.physics import solid as sd
 
     case, s, _ = collision_run
     vm = np.asarray(sd.von_mises_strain(s.ball))

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.materials import SaintVenantKirchhoffSolid
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import bar as bd
-from sphinxsys_tpu.physics import solid as sd
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.materials import SaintVenantKirchhoffSolid
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import bar as bd
+from sphinxsys_jax.physics import solid as sd
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -146,7 +146,7 @@ def test_slender_beam_udl_reference_deflection():
     reference's own 10% gate of displ_max_reference = 1.8687."""
     import jax.numpy as jnp
 
-    from sphinxsys_tpu.cases import slender_beam_3d as sb
+    from sphinxsys_jax.cases import slender_beam_3d as sb
 
     case, s = sb.build_case()
     run = sb.make_run_chunk(case)

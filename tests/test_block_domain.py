@@ -12,10 +12,10 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import dambreak_2d as db
-from sphinxsys_tpu.engine import scene as sc
-from sphinxsys_tpu.parallel import block_domain as bd
-from sphinxsys_tpu.parallel.mesh import make_particle_mesh
+from sphinxsys_jax.cases import dambreak_2d as db
+from sphinxsys_jax.engine import scene as sc
+from sphinxsys_jax.parallel import block_domain as bd
+from sphinxsys_jax.parallel.mesh import make_particle_mesh
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -38,7 +38,7 @@ def test_block_domain_matches_single_device():
         import pytest
         pytest.skip("needs 8 virtual devices")
     mesh = make_particle_mesh(N_DEV)
-    scene, fluid = db.build_block_case(dx=0.05, cap=12, tile_c=128)
+    scene, fluid = db.build_block_case(dx=0.05, cap=12)
 
     pos_ref, t_ref, nac_ref = _final_positions_single(scene, fluid, 4)
 
@@ -78,7 +78,7 @@ def test_block_domain_conserves_and_stays_bounded_longer():
         import pytest
         pytest.skip("needs 8 virtual devices")
     mesh = make_particle_mesh(N_DEV)
-    scene, fluid = db.build_block_case(dx=0.05, cap=12, tile_c=128)
+    scene, fluid = db.build_block_case(dx=0.05, cap=12)
     hsim = bd.distribute_block_engine(scene.eng, fluid, mesh)
     step = bd.make_distributed_engine_step(
         scene.eng, mesh, wall_b=scene.wall_b, bm_wall=scene.bm_wall,

@@ -1,7 +1,6 @@
 """Generic block-engine tests (engine/block_fluid.py + engine/scene.py):
 the fast path must reproduce the gather engine on viscous + TVC +
-periodic + moving-wall FSI cases, in both the XLA block form and the
-fused Pallas kernels (interpret mode on CPU)."""
+periodic + moving-wall FSI cases."""
 
 import pytest
 
@@ -14,7 +13,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def _run_tg_gather(t_end, dx=0.025):
-    from sphinxsys_tpu.cases import taylor_green_2d as tg
+    from sphinxsys_jax.cases import taylor_green_2d as tg
 
     case, fluid = tg.build_case(dx=dx)
     s = tg.init_sim(case, fluid)
@@ -23,10 +22,10 @@ def _run_tg_gather(t_end, dx=0.025):
 
 
 def _run_tg_block(t_end, dx=0.025, **kw):
-    from sphinxsys_tpu.cases import taylor_green_2d as tg
-    from sphinxsys_tpu.engine import scene as sc
+    from sphinxsys_jax.cases import taylor_green_2d as tg
+    from sphinxsys_jax.engine import scene as sc
 
-    scene, fluid = tg.build_block_case(dx=dx, tile_c=32, **kw)
+    scene, fluid = tg.build_block_case(dx=dx, **kw)
     s = sc.init_sim(scene, fluid)
     s = sc.make_run_chunk(scene)(s, jnp.asarray(t_end, s.time.dtype))
     assert not bool(s.overflow)
@@ -46,22 +45,10 @@ def test_taylor_green_block_matches_gather_engine():
                                np.asarray(pb["Position"]), atol=5e-5)
 
 
-def test_taylor_green_pallas_matches_block_engine():
-    """The periodic Pallas sweeps (min-image wrap + Vol=0 padding + mask-
-    channel density + fused viscous/TVC) == the XLA block path."""
-    _, sa, pa = _run_tg_block(0.02)
-    _, sb, pb = _run_tg_block(0.02, use_pallas=True, pallas_interpret=True)
-    assert int(sa.n_ac) == int(sb.n_ac)
-    np.testing.assert_allclose(np.asarray(pa["Velocity"]),
-                               np.asarray(pb["Velocity"]), atol=5e-5)
-    np.testing.assert_allclose(np.asarray(pa["Density"]),
-                               np.asarray(pb["Density"]), atol=1e-4)
-
-
 def test_taylor_green_block_decay_tracks_analytic():
     """Physics oracle on the fast path: kinetic energy decays like
     exp(-16 pi^2 nu t) (velocity ~ exp(-8 pi^2 nu t))."""
-    from sphinxsys_tpu.cases import taylor_green_2d as tg
+    from sphinxsys_jax.cases import taylor_green_2d as tg
 
     t_end = 0.1
     _, s, p = _run_tg_block(t_end, dx=0.025)
@@ -81,16 +68,15 @@ def test_fsi2_block_matches_gather_engine():
     different orders, and the bluff-body shear flow amplifies fp32
     roundoff chaotically (f64 keeps the gap ~1e-9 where f32 reaches 1e-3
     by t=0.2)."""
-    from sphinxsys_tpu.cases import fsi2
-    from sphinxsys_tpu.engine import scene as sc
+    from sphinxsys_jax.cases import fsi2
+    from sphinxsys_jax.engine import scene as sc
 
     t = 0.1
     case_g, fl_g, so_g = fsi2.build_case(dx=0.1, dtype=jnp.float64)
     sg = fsi2.init_sim(case_g, fl_g, so_g)
     sg = fsi2.make_run_chunk(case_g)(sg, jnp.asarray(t, sg.time.dtype))
 
-    scene, fl_b, so_b = fsi2.build_block_case(dx=0.1, tile_c=32,
-                                              dtype=jnp.float64)
+    scene, fl_b, so_b = fsi2.build_block_case(dx=0.1, dtype=jnp.float64)
     sb = fsi2.init_block_sim(scene, fl_b, so_b)
     sb = sc.make_run_chunk(scene)(sb, jnp.asarray(t, sb.time.dtype))
     assert not bool(sb.overflow)
@@ -105,47 +91,19 @@ def test_fsi2_block_matches_gather_engine():
                                atol=1e-9)
 
 
-def test_fsi2_pallas_matches_block_engine():
-    """The fused Pallas sweeps on fsi2 (x-periodic wrap + merged moving
-    wall body) == the XLA block path (fp32, short horizon)."""
-    from sphinxsys_tpu.cases import fsi2
-    from sphinxsys_tpu.engine import scene as sc
-
-    t = 0.08
-    scene_a, fl_a, so_a = fsi2.build_block_case(dx=0.1, tile_c=32)
-    sa = fsi2.init_block_sim(scene_a, fl_a, so_a)
-    sa = sc.make_run_chunk(scene_a)(sa, jnp.asarray(t, sa.time.dtype))
-
-    scene_b, fl_b, so_b = fsi2.build_block_case(dx=0.1, tile_c=32,
-                                                use_pallas=True,
-                                                pallas_interpret=True)
-    sb = fsi2.init_block_sim(scene_b, fl_b, so_b)
-    sb = sc.make_run_chunk(scene_b)(sb, jnp.asarray(t, sb.time.dtype))
-    assert not bool(sb.overflow)
-    assert int(sa.n_ac) == int(sb.n_ac)
-
-    pa = sc.blocks_to_particles(scene_a, sa)
-    pb = sc.blocks_to_particles(scene_b, sb)
-    np.testing.assert_allclose(np.asarray(pa["Velocity"]),
-                               np.asarray(pb["Velocity"]), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(sa.aux["solid"]["Position"]),
-                               np.asarray(sb.aux["solid"]["Position"]),
-                               atol=1e-5)
-
-
 def test_dambreak_3d_block_matches_gather_engine():
     """The dim-generic block engine in 3D (27-window sweeps, cap 48) ==
     the 3D gather engine over several dual-criteria advection steps."""
     import jax
-    from sphinxsys_tpu.cases import dambreak_3d as db3
-    from sphinxsys_tpu.engine import scene as sc
+    from sphinxsys_jax.cases import dambreak_3d as db3
+    from sphinxsys_jax.engine import scene as sc
 
     dx = 0.1
     case_g, fluid_g = db3.build_case(dx=dx)
     sg = db3.init_sim(case_g, fluid_g)
     step_g = jax.jit(lambda s: db3._advection_step(case_g, s))
 
-    scene, fluid_b = db3.build_block_case(dx=dx, tile_c=32, cap=48)
+    scene, fluid_b = db3.build_block_case(dx=dx, cap=48)
     sb = sc.init_sim(scene, fluid_b)
     step_b = sc.make_advection_step(scene)
 
@@ -159,32 +117,3 @@ def test_dambreak_3d_block_matches_gather_engine():
                                np.asarray(pb["Position"]), atol=5e-5)
     np.testing.assert_allclose(np.asarray(sg.fluid["Velocity"]),
                                np.asarray(pb["Velocity"]), atol=5e-4)
-
-
-def test_dambreak_3d_pallas_matches_block_engine():
-    """The dim-generic fused Pallas sweeps (27 windows, static-wall
-    7-channel tensor) == the 3D XLA block path (interpret mode)."""
-    from sphinxsys_tpu.cases import dambreak_3d as db3
-    from sphinxsys_tpu.engine import scene as sc
-
-    scene_a, fluid_a = db3.build_block_case(dx=0.1, tile_c=32, cap=48)
-    sa = sc.init_sim(scene_a, fluid_a)
-    step_a = sc.make_advection_step(scene_a)
-
-    scene_b, fluid_b = db3.build_block_case(dx=0.1, tile_c=32, cap=48,
-                                            use_pallas=True,
-                                            pallas_interpret=True)
-    sb = sc.init_sim(scene_b, fluid_b)
-    step_b = sc.make_advection_step(scene_b)
-
-    for _ in range(3):
-        sa = step_a(sa)
-        sb = step_b(sb)
-    assert not bool(sb.overflow)
-    assert int(sa.n_ac) == int(sb.n_ac)
-    pa = sc.blocks_to_particles(scene_a, sa)
-    pb = sc.blocks_to_particles(scene_b, sb)
-    np.testing.assert_allclose(np.asarray(pa["Velocity"]),
-                               np.asarray(pb["Velocity"]), atol=5e-5)
-    np.testing.assert_allclose(np.asarray(pa["Density"]),
-                               np.asarray(pb["Density"]), atol=1e-4)

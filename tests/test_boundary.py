@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core.state import make_fluid_state, FAR_AWAY
-from sphinxsys_tpu.physics import boundary as bd
+from sphinxsys_jax.core.state import make_fluid_state, FAR_AWAY
+from sphinxsys_jax.physics import boundary as bd
 
 
 def make_channel_state():
@@ -73,7 +73,7 @@ def test_injection_is_jittable():
 
 def test_masked_neighbor_search_with_alive():
     """Neighbor engines accept the Alive mask directly."""
-    from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+    from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
 
     state = make_channel_state()
     state["Alive"] = state["Alive"].at[3].set(False)

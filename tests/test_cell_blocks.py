@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.neighbors import grid_from_bounds
-from sphinxsys_tpu.neighbors.cell_blocks import (
+from sphinxsys_jax.neighbors import grid_from_bounds
+from sphinxsys_jax.neighbors.cell_blocks import (
     build_block_map, cross_neighbor_blocks, to_blocks, from_blocks,
 )
 
@@ -74,7 +74,7 @@ def test_block_pairs_match_brute_force():
                         continue
                     if np.linalg.norm(pos_np[i] - pos_np[jp]) < cutoff:
                         pairs.add((i, jp))
-    from sphinxsys_tpu.neighbors import brute_force_neighbors
+    from sphinxsys_jax.neighbors import brute_force_neighbors
     expected = brute_force_neighbors(pos_np, n, pos_np, n, cutoff, include_self=False)
     assert pairs == expected
 
@@ -105,9 +105,9 @@ def test_block_overflow_detection():
 def test_dambreak_block_matches_gather_engine():
     """The block engine must reproduce the gather engine to fp32 roundoff
     (same math, different summation layout)."""
-    from sphinxsys_tpu.cases import dambreak_2d as db
-    from sphinxsys_tpu.engine import scene as sc
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import dambreak_2d as db
+    from sphinxsys_jax.engine import scene as sc
+    from sphinxsys_jax.physics import general as gd
 
     case_g, fluid_g = db.build_case(dx=0.1)
     sg = db.init_sim(case_g, fluid_g)
@@ -126,121 +126,3 @@ def test_dambreak_block_matches_gather_engine():
     xg = np.sort(np.asarray(sg.fluid["Position"][: case_g.n_fluid, 0]))
     xb = np.sort(np.asarray(pg["Position"][:, 0]))
     assert np.abs(xg - xb).max() < 1e-4
-
-
-def test_pallas_v2_acoustic_steps_match_block_engine():
-    """The fused transposed Pallas sweeps (ops/pallas_block2.py) must
-    reproduce the XLA block engine bit-closely on a real dambreak scene
-    (interpret mode on CPU)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from sphinxsys_tpu.cases import dambreak_2d as db
-    from sphinxsys_tpu.engine import scene as sc
-    from sphinxsys_tpu.physics import fluid_blocks as fbops
-
-    case, fluid = db.build_block_case(dx=0.1, tile_c=32)
-    sim = sc.init_sim(case, fluid)
-    # advance a few steps so pressures/velocities are nontrivial
-    sim = sc.make_run_chunk(case)(sim, jnp.asarray(0.05, sim.time.dtype))
-    fb = sim.fluid_b
-    base = case.base
-    kernel, dim = base.kernel, 2
-    dt = fbops.acoustic_time_step_b(fb, base.eos, base.adaptation.h)
-
-    ref1 = fbops.acoustic_step_1st_half_b(
-        fb, sim.nbr_inner, kernel, dim, base.eos, base.riemann, dt,
-        wall_b=case.wall_b, nbr_wall=sim.nbr_wall)
-    ref2 = fbops.acoustic_step_2nd_half_b(
-        ref1, sim.nbr_inner, kernel, dim, base.riemann, dt,
-        wall_b=case.wall_b, nbr_wall=sim.nbr_wall)
-
-    wall_jt, wflags = jax.jit(lambda: fbops.pack_wall_t(
-        case.wall_b, sim.nbr_wall, case.bm_wall.c_max, case.eng.tile_c,
-        wall_static=True))()
-    got1 = fbops.acoustic_step_1st_half_p2(
-        fb, sim.nbr_inner, wall_jt, wflags, kernel, base.eos, base.riemann,
-        dt, tile_c=case.eng.tile_c, interpret=True, wall_static=True)
-    mask = np.asarray(fb["SlotMask"])
-    for k in ("Force", "DensityChangeRate", "Velocity", "Density", "Pressure"):
-        a, b = np.asarray(ref1[k]), np.asarray(got1[k])
-        np.testing.assert_allclose(a[mask], b[mask], rtol=2e-5, atol=1e-5,
-                                   err_msg=f"1st half {k}")
-
-    got2 = fbops.acoustic_step_2nd_half_p2(
-        got1, sim.nbr_inner, wall_jt, wflags, kernel, base.riemann, dt,
-        tile_c=case.eng.tile_c, interpret=True, wall_static=True)
-    for k in ("Force", "DensityChangeRate", "Density", "Position"):
-        a, b = np.asarray(ref2[k]), np.asarray(got2[k])
-        np.testing.assert_allclose(a[mask], b[mask], rtol=2e-5, atol=1e-5,
-                                   err_msg=f"2nd half {k}")
-
-
-def test_pallas_v2_case_runs_interpreted():
-    """use_pallas=True end-to-end on CPU (interpret mode): a few advection
-    steps stay stable and match the XLA engine trajectory closely."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from sphinxsys_tpu.cases import dambreak_2d as db
-    from sphinxsys_tpu.engine import scene as sc
-
-    case_a, fluid_a = db.build_block_case(dx=0.1, tile_c=32)
-    sim_a = sc.init_sim(case_a, fluid_a)
-    case_b, fluid_b = db.build_block_case(dx=0.1, tile_c=32, use_pallas=True,
-                                          pallas_interpret=True)
-    sim_b = sc.init_sim(case_b, fluid_b)
-    t = jnp.asarray(0.08, sim_a.time.dtype)
-    out_a = sc.make_run_chunk(case_a)(sim_a, t)
-    out_b = sc.make_run_chunk(case_b)(sim_b, t)
-    assert not bool(out_b.overflow)
-    pa = sc.blocks_to_particles(case_a, out_a)
-    pb = sc.blocks_to_particles(case_b, out_b)
-    np.testing.assert_allclose(np.asarray(pa["Position"]),
-                               np.asarray(pb["Position"]), atol=5e-5)
-
-
-def test_window_jt_ztriple_matches_naive_gather():
-    """The 3D z-triple anchored-gather build of the Pallas j-tensor
-    (fluid_blocks._window_jt roll_y path) must equal the naive per-window
-    gather on SPARSE occupancy, including z-sandwich columns (z+-1
-    occupied, z empty) and isolated cells."""
-    import numpy as np
-    from sphinxsys_tpu.neighbors import grid_from_bounds
-    from sphinxsys_tpu.neighbors.cell_blocks import build_block_map
-    from sphinxsys_tpu.physics import fluid_blocks as fbops
-
-    rng = np.random.default_rng(3)
-    # sparse cloud + a deliberate z-sandwich: particles at z-cells 0 and 2
-    # of one column with the middle cell empty
-    pos = rng.uniform(0.2, 7.8, size=(400, 3))
-    col = np.asarray([[3.1, 3.1, 0.5], [3.1, 3.1, 2.5],
-                      [3.15, 3.12, 0.4], [3.12, 3.14, 2.6]])
-    pos = np.concatenate([pos, col])
-    grid = grid_from_bounds((0.0, 0.0, 0.0), (8.0, 8.0, 8.0), 1.0)
-    bm = build_block_map(jnp.asarray(pos, jnp.float32),
-                         jnp.int32(len(pos)), grid, cap=16, c_max=512)
-    assert not bool(bm.overflow)
-    c = bm.nbr_block.shape[0]
-    packed = jnp.asarray(
-        rng.normal(size=(c + 1, 16, 5)).astype(np.float32))
-    # engine convention: the sentinel row AND all rows beyond the occupied
-    # range carry FAR-parked positions (block fills)
-    nbr_np = np.asarray(bm.nbr_block)
-    n_occ = int((nbr_np[:, 13] < c).sum())
-    packed = packed.at[n_occ:, :, :3].set(1.0e16)
-
-    fast = fbops._window_jt(packed, bm.nbr_block, c, roll_y=True, dim=3)
-    naive = fbops._window_jt(packed, bm.nbr_block, c, roll_y=False, dim=3)
-    fast = np.asarray(fast)
-    naive = np.asarray(naive)
-    # FAR-parked entries only need to agree on "is far" (fill patterns
-    # differ); real entries must match exactly
-    far_f = fast[:, 0] > 1e15
-    far_n = naive[:, 0] > 1e15
-    np.testing.assert_array_equal(far_f, far_n)
-    real = ~far_n
-    for ch in range(5):
-        np.testing.assert_array_equal(
-            np.where(real, fast[:, ch], 0.0), np.where(real, naive[:, ch], 0.0))

@@ -6,7 +6,7 @@ import xml.etree.ElementTree as ET
 
 
 def test_cli_runs_case_and_writes_vtp(tmp_path, capsys):
-    from sphinxsys_tpu import run as cli
+    from sphinxsys_jax import run as cli
 
     out = os.path.join(tmp_path, "out")
     rc = cli.main(["dambreak_2d", "--set", "dx=0.1", "--set", "t_end=0.2",
@@ -19,12 +19,12 @@ def test_cli_runs_case_and_writes_vtp(tmp_path, capsys):
 
 
 def test_cli_registers_all_cases():
-    """Every case module under sphinxsys_tpu/cases is drivable (VERDICT r1
+    """Every case module under sphinxsys_jax/cases is drivable (VERDICT r1
     weak #8: only 7 of 13 were registered)."""
     import pkgutil
 
-    import sphinxsys_tpu.cases as cases_pkg
-    from sphinxsys_tpu import run as cli
+    import sphinxsys_jax.cases as cases_pkg
+    from sphinxsys_jax import run as cli
 
     modules = {m.name for m in pkgutil.iter_modules(cases_pkg.__path__)}
     missing = modules - set(cli.CASES)
@@ -32,7 +32,7 @@ def test_cli_registers_all_cases():
 
 
 def test_cli_runs_solid_case(tmp_path):
-    from sphinxsys_tpu import run as cli
+    from sphinxsys_jax import run as cli
 
     out = os.path.join(tmp_path, "out_beam")
     rc = cli.main(["oscillating_beam_2d", "--set", "t_end=0.001",
@@ -42,14 +42,14 @@ def test_cli_runs_solid_case(tmp_path):
 
 
 def test_cli_rejects_unknown_case(capsys):
-    from sphinxsys_tpu import run as cli
+    from sphinxsys_jax import run as cli
 
     assert cli.main(["nope"]) == 2
     assert "unknown case" in capsys.readouterr().out
 
 
 def test_cli_lists_cases(capsys):
-    from sphinxsys_tpu import run as cli
+    from sphinxsys_jax import run as cli
 
     assert cli.main([]) == 0
     assert "dambreak_2d" in capsys.readouterr().out

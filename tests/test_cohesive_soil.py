@@ -11,8 +11,8 @@ E/E0 = 0.8915 — gated at 1%.
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import cohesive_soil_failure_2d as cs
-from sphinxsys_tpu.physics import general as gd
+from sphinxsys_jax.cases import cohesive_soil_failure_2d as cs
+from sphinxsys_jax.physics import general as gd
 
 E0_REF = 145040.0
 E_ARREST_REF = 129900.0

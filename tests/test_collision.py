@@ -7,7 +7,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import collision_2d as co
+from sphinxsys_jax.cases import collision_2d as co
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

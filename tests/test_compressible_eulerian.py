@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.materials import CompressibleFluid
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import eulerian as eu
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.materials import CompressibleFluid
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import eulerian as eu
 
 GAMMA = 1.4
 

@@ -2,7 +2,7 @@
 
 import json
 
-from sphinxsys_tpu.utils.config import RunConfig
+from sphinxsys_jax.utils.config import RunConfig
 
 
 def test_cli_flags():

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.materials import SaintVenantKirchhoffSolid
-from sphinxsys_tpu.core.state import make_solid_state
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import contact as ct
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.materials import SaintVenantKirchhoffSolid
+from sphinxsys_jax.core.state import make_solid_state
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import contact as ct
 
 
 def two_blocks(gap):
@@ -76,7 +76,7 @@ def test_self_repulsion_factor_zero_on_lattice():
 
 
 def test_active_fiber_stress():
-    from sphinxsys_tpu.physics.solid import active_fiber_stress
+    from sphinxsys_jax.physics.solid import active_fiber_stress
 
     fn = active_fiber_stress()
     solid = {

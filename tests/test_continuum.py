@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import continuum as cm
+from sphinxsys_jax.physics import continuum as cm
 
 
 def test_dp_constants():
@@ -57,7 +57,7 @@ def test_elastic_constitutive_rate():
 def test_column_collapse_arrests(_=None):
     """The granular column must spread AND come to rest (friction) —
     a fluid would keep sloshing."""
-    from sphinxsys_tpu.cases import column_collapse_2d as cc
+    from sphinxsys_jax.cases import column_collapse_2d as cc
 
     case, soil = cc.build_case(dx=cc.LH / 12)  # very coarse for CI
     s = cc.init_sim(case, soil)
@@ -79,7 +79,7 @@ def test_viscous_plastic_solid_limits():
     surface) and frozen (eta -> inf: trial state) limits."""
     import jax.numpy as jnp
     import numpy as np
-    from sphinxsys_tpu.core.materials import ViscousPlasticSolid
+    from sphinxsys_jax.core.materials import ViscousPlasticSolid
 
     def run(eta, gamma, dt=1e-3):
         m = ViscousPlasticSolid(rho0=1.0, youngs_modulus=10.0,
@@ -118,7 +118,7 @@ def test_locally_orthotropic_muscle_matches_global():
     the global Muscle stress (LocallyOrthotropicMuscle::StressPK2)."""
     import jax.numpy as jnp
     import numpy as np
-    from sphinxsys_tpu.core.materials import LocallyOrthotropicMuscle, Muscle
+    from sphinxsys_jax.core.materials import LocallyOrthotropicMuscle, Muscle
 
     kw = dict(rho0=1.0, youngs_modulus=1.0, poisson_ratio=0.3,
               bulk_modulus_param=5.0, f0=(1.0, 0.0), s0=(0.0, 1.0),
@@ -140,7 +140,7 @@ def test_composite_solid_dispatches_by_id():
     selects the composed material's stress; density follows the id."""
     import jax.numpy as jnp
     import numpy as np
-    from sphinxsys_tpu.core.materials import (CompositeSolid,
+    from sphinxsys_jax.core.materials import (CompositeSolid,
                                               NeoHookeanSolid,
                                               SaintVenantKirchhoffSolid)
 

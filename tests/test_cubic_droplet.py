@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.io import regression as rg
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -25,7 +25,7 @@ def test_cubic_droplet_rounds_and_tracks_reference_ke():
         0.735 vs ref 0.768 at snap 1 despite the coarser dx); DTW on the
         6-snapshot prefix < 0.35 (ref runs' own full-series pairwise
         spread is ~0.3-0.9 — capillary oscillations decorrelate)."""
-    from sphinxsys_tpu.cases import cubic_droplet_3d as cd
+    from sphinxsys_jax.cases import cubic_droplet_3d as cd
 
     case, water, air = cd.build_case(dx=2.0 / 20)
     s = cd.init_sim(case, water, air)

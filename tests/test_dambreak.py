@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import dambreak_2d as db
-from sphinxsys_tpu.physics import general as gd
+from sphinxsys_jax.cases import dambreak_2d as db
+from sphinxsys_jax.physics import general as gd
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import dambreak_3d as db3
-from sphinxsys_tpu.physics import general as gd
+from sphinxsys_jax.cases import dambreak_3d as db3
+from sphinxsys_jax.physics import general as gd
 
 
 @pytest.fixture(scope="module")

@@ -18,8 +18,8 @@ equations and is gated loosely (arrival window), not snapshot-wise.
 import numpy as np
 import jax.numpy as jnp
 
-from sphinxsys_tpu.cases import depolarization_2d as dp
-from sphinxsys_tpu.io.regression import EnsembleAverageRegressionTest
+from sphinxsys_jax.cases import depolarization_2d as dp
+from sphinxsys_jax.io.regression import EnsembleAverageRegressionTest
 
 REF_DB = ("/root/reference/tests/2d_examples/test_2d_depolarization/"
           "regression_test_tool")

@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.core.state import make_base_state
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import diffusion as df
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.core.state import make_base_state
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import diffusion as df
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -135,7 +135,7 @@ def _run_bc_case(mode, dx):
     import jax.numpy as jnp
     import numpy as np
 
-    from sphinxsys_tpu.cases import diffusion_bcs_2d as dbc
+    from sphinxsys_jax.cases import diffusion_bcs_2d as dbc
 
     case = dbc.build_case(mode=mode, dx=dx)
     s = dbc.init_sim(case)
@@ -157,14 +157,14 @@ def test_neumann_slab_matches_analytic_gradient():
     import jax.numpy as jnp
     import numpy as np
 
-    from sphinxsys_tpu.core import geometry as G
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.core.generators import generate_lattice
-    from sphinxsys_tpu.neighbors import (build_cell_table,
+    from sphinxsys_jax.core import geometry as G
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.core.generators import generate_lattice
+    from sphinxsys_jax.neighbors import (build_cell_table,
                                          build_neighbor_list,
                                          grid_from_bounds)
-    from sphinxsys_tpu.physics import diffusion as dfn
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.physics import diffusion as dfn
+    from sphinxsys_jax.physics import general as gd
     import jax
 
     dx = 1 / 50
@@ -238,7 +238,7 @@ def test_robin_bc_vs_reference_ensemble_db():
     resolution lands within ~3 sd)."""
     import numpy as np
 
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.io import regression as rg
 
     ours = _run_bc_case("robin", 1 / 100)
     e = rg.EnsembleAverageRegressionTest(
@@ -261,7 +261,7 @@ def test_neumann_bc_vs_reference_ensemble_db():
     ensemble mean (shape and the other observers track within ~3%)."""
     import numpy as np
 
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.io import regression as rg
 
     ours = _run_bc_case("neumann", 1 / 100)
     e = rg.EnsembleAverageRegressionTest(
@@ -278,7 +278,7 @@ def test_directional_diffusion_inverse_metric_form():
     across, and BELOW the naive quadratic form d + b (e.f)^2 at oblique
     angles (harmonic-type interpolation)."""
     import numpy as np
-    from sphinxsys_tpu.physics.diffusion import (DirectionalDiffusion,
+    from sphinxsys_jax.physics.diffusion import (DirectionalDiffusion,
                                                  LocalDirectionalDiffusion)
 
     d, b = 1.0, 4.0

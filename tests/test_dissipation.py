@@ -3,12 +3,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.core.state import make_fluid_state
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import dissipation as dp
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.core.state import make_fluid_state
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import dissipation as dp
 
 
 def setup(dx=0.05):
@@ -71,12 +71,12 @@ def test_cg_damping_matches_jacobi_in_shallow_regime():
     splitting is only deficient in the deep-implicit regime)."""
     import jax
     import numpy as np
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.core.state import make_fluid_state
-    from sphinxsys_tpu.neighbors import (build_cell_table,
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.core.state import make_fluid_state
+    from sphinxsys_jax.neighbors import (build_cell_table,
                                          build_neighbor_list,
                                          grid_from_bounds)
-    from sphinxsys_tpu.physics import dissipation as dp
+    from sphinxsys_jax.physics import dissipation as dp
 
     dx = 0.1
     ad = SPHAdaptation(spacing=dx, dim=2)

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import droplet_impact_2d as di
+from sphinxsys_jax.cases import droplet_impact_2d as di
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -22,8 +22,8 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def test_elastic_gate_deflection_matches_reference_db():
-    from sphinxsys_tpu.cases import elastic_gate_2d as eg
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.cases import elastic_gate_2d as eg
+    from sphinxsys_jax.io import regression as rg
 
     case, fluid, gate = eg.build_case()
     s = eg.init_sim(case, fluid, gate)

@@ -15,7 +15,7 @@ import xml.etree.ElementTree as ET
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import eulerian_taylor_green_2d as tg
+from sphinxsys_jax.cases import eulerian_taylor_green_2d as tg
 
 DB = ("/root/reference/tests/2d_examples/test_2d_eulerian_taylor_green_LG/"
       "regression_test_tool/"

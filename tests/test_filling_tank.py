@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import filling_tank_2d as ft
+from sphinxsys_jax.cases import filling_tank_2d as ft
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -14,7 +14,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "fish")
 def test_fish_fsi_composition_runs():
     """Coarse end-to-end: channel + fish + open boundaries advance stably
     with conserved bodies and no capacity overflow."""
-    from sphinxsys_tpu.cases import fish_fsi_2d as ff
+    from sphinxsys_jax.cases import fish_fsi_2d as ff
 
     case, fluid, fish = ff.build_case(dx=0.01)
     s = ff.init_sim(case, fluid, fish)
@@ -33,9 +33,9 @@ def test_fish_fsi_composition_runs():
 def test_fish_production_self_propulsion_curve():
     """The committed production run (dx = 0.0025 = the reference's
     particle_spacing_ref, t = 0..1.7 = End_Time, benchmarks/
-    run_fish_validation.py on TPU) shows sustained forward self-propulsion:
+    run_fish_validation.py) shows sustained forward self-propulsion:
     over half a body length of forward travel, stable lateral position."""
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.io import regression as rg
 
     coms = rg.read_result_xml(
         os.path.join(GOLDEN, "FishBody_CenterOfMass_Run_0_result.xml"))[0]

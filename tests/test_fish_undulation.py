@@ -7,7 +7,7 @@ import pytest
 
 
 def test_active_model_pk1_zero_strain_is_passive():
-    from sphinxsys_tpu.physics import solid as sd
+    from sphinxsys_jax.physics import solid as sd
 
     rng = np.random.default_rng(0)
     F = jnp.asarray(np.eye(2) + 0.05 * rng.normal(size=(7, 2, 2)))
@@ -24,7 +24,7 @@ def test_active_model_pk1_zero_strain_is_passive():
 def test_active_strain_relaxes_to_activation():
     """A free homogeneous block with constant active strain E_a must relax
     to F^T F = 2 E_a + I (stress-free at F = F0)."""
-    from sphinxsys_tpu.physics import solid as sd
+    from sphinxsys_jax.physics import solid as sd
 
     F = jnp.broadcast_to(jnp.eye(2), (3, 2, 2))
     ea = jnp.zeros((3, 2, 2)).at[:, 0, 0].set(-0.05)
@@ -35,7 +35,7 @@ def test_active_strain_relaxes_to_activation():
 
 @pytest.fixture(scope="module")
 def fish_run():
-    from sphinxsys_tpu.cases import fish_undulation_2d as fu
+    from sphinxsys_jax.cases import fish_undulation_2d as fu
 
     case, s = fu.build_case(dx=0.004)
     run = fu.make_run_chunk(case)

@@ -12,7 +12,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def cyl_run():
-    from sphinxsys_tpu.cases import flow_around_cylinder_2d as fc
+    from sphinxsys_jax.cases import flow_around_cylinder_2d as fc
 
     case, fluid, cyl = fc.build_case()  # dx = 0.2, the reference resolution
     s = fc.init_sim(case, fluid, cyl)
@@ -41,7 +41,7 @@ def test_drag_develops_downstream_positive(cyl_run):
 
 def test_freestream_buffer_holds(cyl_run):
     """Buffer bands relax to the free stream: inlet-sponge velocity ~ U."""
-    from sphinxsys_tpu.cases import flow_around_cylinder_2d as fc
+    from sphinxsys_jax.cases import flow_around_cylinder_2d as fc
 
     case, s, _ = cyl_run
     pos = np.asarray(s.fluid["Position"])[: case.n_fluid]

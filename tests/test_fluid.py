@@ -4,15 +4,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.core.materials import WeaklyCompressibleFluid
-from sphinxsys_tpu.core.state import make_fluid_state
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import fluid as fd
-from sphinxsys_tpu.physics import riemann as rs
-from sphinxsys_tpu.physics import general as gd
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.core.materials import WeaklyCompressibleFluid
+from sphinxsys_jax.core.state import make_fluid_state
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import fluid as fd
+from sphinxsys_jax.physics import riemann as rs
+from sphinxsys_jax.physics import general as gd
 
 
 def periodic_free_fluid(dx=0.05, L=1.0):

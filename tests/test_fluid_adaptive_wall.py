@@ -13,15 +13,15 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 def test_mr_hydrostatic_tank_stays_at_rest():
     jax.config.update("jax_platforms", "cpu")
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.core.materials import WeaklyCompressibleFluid
-    from sphinxsys_tpu.core.state import make_fluid_state, make_solid_state
-    from sphinxsys_tpu.neighbors.cell_list import grid_from_bounds, wrap_positions
-    from sphinxsys_tpu.neighbors.multilevel import (
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.core.materials import WeaklyCompressibleFluid
+    from sphinxsys_jax.core.state import make_fluid_state, make_solid_state
+    from sphinxsys_jax.neighbors.cell_list import grid_from_bounds, wrap_positions
+    from sphinxsys_jax.neighbors.multilevel import (
         build_adaptive_neighbor_list, build_multilevel_tables)
-    from sphinxsys_tpu.physics import fluid as fd
-    from sphinxsys_tpu.physics import fluid_adaptive as fa
-    from sphinxsys_tpu.physics import riemann as rs
+    from sphinxsys_jax.physics import fluid as fd
+    from sphinxsys_jax.physics import fluid_adaptive as fa
+    from sphinxsys_jax.physics import riemann as rs
 
     L, H = 1.0, 0.6
     dx = 0.05

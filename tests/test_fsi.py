@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import fsi
+from sphinxsys_jax.physics import fsi
 
 
 def test_force_prior_accumulation():
@@ -56,7 +56,7 @@ def test_update_elastic_normal_rotates():
 
 @pytest.fixture(scope="module")
 def fsi_short():
-    from sphinxsys_tpu.cases import fsi2
+    from sphinxsys_jax.cases import fsi2
 
     # dx must keep the beam >= 2 particle rows (bh = 0.2); dx=0.15 makes it
     # a degenerate single row and the elastic solver blows up
@@ -111,7 +111,7 @@ def test_fsi2_solid_feels_drag(fsi_short):
 # fsi2 production validation (VERDICT r1 item 3): the committed tip curve
 # from the full t=0..200 run at the reference resolution (dx=0.1,
 # fsi2.h:18 global_resolution) is compared against the reference DB.
-# Regenerate with benchmarks/run_fsi2_validation.py (TPU, ~15 min).
+# Regenerate with benchmarks/run_fsi2_validation.py (on the GPU).
 # ---------------------------------------------------------------------------
 
 FSI2_REF_DB = "/root/reference/tests/2d_examples/test_2d_fsi2/regression_test_tool"
@@ -122,7 +122,7 @@ FSI2_GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "fsi2",
 @pytest.mark.skipif(not (os.path.isdir(FSI2_REF_DB) and os.path.exists(FSI2_GOLDEN)),
                     reason="reference DB or golden curve missing")
 def test_fsi2_production_tip_curve_vs_reference_db():
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.io import regression as rg
 
     ours = rg.read_result_xml(FSI2_GOLDEN)      # (1, 107, 2)
     y = ours[0, :, 1]

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.fvm import (compile_mesh, cylinder_ogrid, read_fluent_msh,
+from sphinxsys_jax.fvm import (compile_mesh, cylinder_ogrid, read_fluent_msh,
                                write_fluent_msh)
-from sphinxsys_tpu.fvm import dynamics as fv
-from sphinxsys_tpu.fvm.mesh import RawMesh
+from sphinxsys_jax.fvm import dynamics as fv
+from sphinxsys_jax.fvm.mesh import RawMesh
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -108,7 +108,7 @@ def test_ogrid_roundtrip_and_geometry():
 
 
 def _mini_sim(nr=10, nt=20, r_far=8.0):
-    from sphinxsys_tpu.cases import fvm_cylinder_2d as fc
+    from sphinxsys_jax.cases import fvm_cylinder_2d as fc
 
     case, fluid = fc.build_case(nr=nr, nt=nt, r_far=r_far)
     return fc, case, fc.init_sim(case, fluid)
@@ -158,7 +158,7 @@ def test_supersonic_cylinder_bow_shock():
     nose stagnation density matches normal-shock + isentropic compression
     (rho_stag ~ 3.1 rho_inf at M = 2, gamma = 1.4), and the shock sits a
     fraction of a radius upstream."""
-    from sphinxsys_tpu.cases import supersonic_cylinder_2d as sc
+    from sphinxsys_jax.cases import supersonic_cylinder_2d as sc
 
     case, fluid = sc.build_case(nr=28, nt=72)
     s = sc.init_sim(case, fluid)
@@ -196,9 +196,9 @@ def test_muscl_sharper_than_first_order():
     sys.path.insert(0, "tests")
     from test_compressible_eulerian import sod_exact
 
-    from sphinxsys_tpu.core.materials import CompressibleFluid
-    from sphinxsys_tpu.fvm.mesh import compile_mesh
-    from sphinxsys_tpu.fvm.meshgen import rect_grid
+    from sphinxsys_jax.core.materials import CompressibleFluid
+    from sphinxsys_jax.fvm.mesh import compile_mesh
+    from sphinxsys_jax.fvm.meshgen import rect_grid
 
     mesh = compile_mesh(rect_grid(200, 4, 1.0, 0.02))
     dm = fv.to_device(mesh)
@@ -243,7 +243,7 @@ def test_double_mach_reflection_pattern():
     self-similar position in the Woodward-Colella configuration), the
     density peaks strongly under the stem, and the pre-shock region stays
     undisturbed."""
-    from sphinxsys_tpu.cases import double_mach_reflection_2d as dmr
+    from sphinxsys_jax.cases import double_mach_reflection_2d as dmr
 
     case, fluid = dmr.build_case(nx=240, ny=60)
     s = dmr.init_sim(case, fluid)
@@ -268,7 +268,7 @@ def test_fvm_3d_mesh_compiles_reference_icem():
     positive volumes, closed cells (face-area vectors sum to ~0), domain
     volume below the bounding box (the channel has a bump)."""
     import numpy as np
-    from sphinxsys_tpu.fvm.mesh import compile_mesh, read_fluent_msh
+    from sphinxsys_jax.fvm.mesh import compile_mesh, read_fluent_msh
 
     raw = read_fluent_msh(
         "/root/reference/tests/3d_examples/"
@@ -307,7 +307,7 @@ def test_fvm_3d_channel_conserves_mass_and_speeds_up():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from sphinxsys_tpu.cases import fvm_channel_3d as ch
+    from sphinxsys_jax.cases import fvm_channel_3d as ch
 
     case, state = ch.build_case()
     s = ch.init_sim(case, state)

@@ -4,8 +4,8 @@ contain/distance unit tests in the reference tests/unit_tests_src)."""
 import numpy as np
 import jax.numpy as jnp
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.generators import generate_lattice
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.generators import generate_lattice
 
 
 def test_box_contains_and_sdf():
@@ -77,7 +77,7 @@ def test_surface_lattice_generator_ring():
     shell volume / (spacing^(d-1) * thickness), every particle lies within
     the thin volume, the volumetric measure is the AREA spacing^(d-1), and
     normals are radial after one-side orientation."""
-    from sphinxsys_tpu.core.generators import (
+    from sphinxsys_jax.core.generators import (
         generate_surface_lattice, consistent_shell_normals)
 
     R, t, dx = 1.0, 0.05, 0.025

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.io.regression import DTWRegressionTest
+from sphinxsys_jax.io.regression import DTWRegressionTest
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -18,8 +18,8 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "dambreak_2d")),
                     reason="golden DB not generated")
 def test_dambreak_energy_regression():
-    from sphinxsys_tpu.cases import dambreak_2d as db
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import dambreak_2d as db
+    from sphinxsys_jax.physics import general as gd
 
     case, fluid = db.build_case(dx=0.05)
     s = db.init_sim(case, fluid)
@@ -37,7 +37,7 @@ def test_dambreak_energy_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "oscillating_beam_2d")),
                     reason="golden DB not generated")
 def test_beam_tip_regression():
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case, s = ob.build_case()
     run = ob.make_run_chunk(case)
@@ -54,8 +54,8 @@ def test_beam_tip_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "taylor_green_2d")),
                     reason="golden DB not generated")
 def test_taylor_green_ke_regression():
-    from sphinxsys_tpu.cases import taylor_green_2d as tg
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import taylor_green_2d as tg
+    from sphinxsys_jax.physics import general as gd
 
     case, fluid = tg.build_case(dx=0.02)
     s = tg.init_sim(case, fluid)
@@ -78,8 +78,8 @@ def test_taylor_green_relaxed_ic_matches_analytic_decay():
     analytic at t=1, Re=100, dx=0.02."""
     import math
 
-    from sphinxsys_tpu.cases import taylor_green_2d as tg
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import taylor_green_2d as tg
+    from sphinxsys_jax.physics import general as gd
 
     case, fluid = tg.build_case(dx=0.02, relax_ic=200)
     s = tg.init_sim(case, fluid)
@@ -102,9 +102,9 @@ def test_dambreak_wall_pressure_probe_regression():
     from functools import partial
 
     import jax
-    from sphinxsys_tpu.cases import dambreak_2d as db
-    from sphinxsys_tpu.io.observation import observe_quantity
-    from sphinxsys_tpu.neighbors import build_cell_table, build_neighbor_list
+    from sphinxsys_jax.cases import dambreak_2d as db
+    from sphinxsys_jax.io.observation import observe_quantity
+    from sphinxsys_jax.neighbors import build_cell_table, build_neighbor_list
 
     case, fluid = db.build_case(dx=0.05)
     s = db.init_sim(case, fluid)
@@ -140,7 +140,7 @@ def _dtw_case(subdir, body, quantity, series):
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "shell_cantilever_2d")),
                     reason="golden DB not generated")
 def test_shell_cantilever_regression():
-    from sphinxsys_tpu.cases import shell_cantilever_2d as sc
+    from sphinxsys_jax.cases import shell_cantilever_2d as sc
 
     case, s = sc.build_case()
     run = sc.make_run_chunk(case)
@@ -154,7 +154,7 @@ def test_shell_cantilever_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "shell_plate_3d")),
                     reason="golden DB not generated")
 def test_shell_plate_regression():
-    from sphinxsys_tpu.cases import shell_plate_3d as sp
+    from sphinxsys_jax.cases import shell_plate_3d as sp
 
     case, s = sp.build_case()
     run = sp.make_run_chunk(case)
@@ -168,7 +168,7 @@ def test_shell_plate_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "column_collapse_2d")),
                     reason="golden DB not generated")
 def test_column_collapse_runout_regression():
-    from sphinxsys_tpu.cases import column_collapse_2d as cc
+    from sphinxsys_jax.cases import column_collapse_2d as cc
 
     case, soil = cc.build_case()
     s = cc.init_sim(case, soil)
@@ -183,8 +183,8 @@ def test_column_collapse_runout_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "two_phase_dambreak_2d")),
                     reason="golden DB not generated")
 def test_two_phase_ke_regression():
-    from sphinxsys_tpu.cases import two_phase_dambreak_2d as tp
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import two_phase_dambreak_2d as tp
+    from sphinxsys_jax.physics import general as gd
 
     case, water, air = tp.build_case()
     s = tp.init_sim(case, water, air)
@@ -199,7 +199,7 @@ def test_two_phase_ke_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "ball_shell_collision_3d")),
                     reason="golden DB not generated")
 def test_ball_shell_com_regression():
-    from sphinxsys_tpu.cases import ball_shell_collision_3d as bs
+    from sphinxsys_jax.cases import ball_shell_collision_3d as bs
 
     case, ball = bs.build_case()
     s = bs.init_sim(case, ball)
@@ -219,8 +219,8 @@ def test_ball_shell_com_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "lid_driven_cavity_2d")),
                     reason="golden DB not generated")
 def test_lid_cavity_ke_regression():
-    from sphinxsys_tpu.cases import lid_driven_cavity_2d as lc
-    from sphinxsys_tpu.physics import general as gd
+    from sphinxsys_jax.cases import lid_driven_cavity_2d as lc
+    from sphinxsys_jax.physics import general as gd
 
     case, fluid = lc.build_case()
     s = lc.init_sim(case, fluid)
@@ -235,7 +235,7 @@ def test_lid_cavity_ke_regression():
 @pytest.mark.skipif(not os.path.isdir(os.path.join(GOLDEN, "floating_body_2d")),
                     reason="golden DB not generated")
 def test_floating_body_heave_regression():
-    from sphinxsys_tpu.cases import floating_body_2d as fb
+    from sphinxsys_jax.cases import floating_body_2d as fb
 
     case, fluid = fb.build_case()
     s = fb.init_sim(case, fluid)
@@ -258,7 +258,7 @@ def test_floating_body_heave_regression():
 def test_turbulent_channel_viscosity_regression():
     """Centerpoint eddy-viscosity curve vs the committed run (the reference
     channel's own DTW quantity, test_2d_turbulent_channel.cpp:131)."""
-    from sphinxsys_tpu.cases import turbulent_channel_2d as tc
+    from sphinxsys_jax.cases import turbulent_channel_2d as tc
 
     case, fluid = tc.build_case()
     s = tc.init_sim(case, fluid)
@@ -282,7 +282,7 @@ def test_turbulent_channel_viscosity_regression():
 def test_fvm_cylinder_force_regression():
     """Streamwise force on the cylinder vs the committed run (the FVM
     case's regression quantity, 2d_FVM_flow_around_cylinder.cpp:131)."""
-    from sphinxsys_tpu.cases import fvm_cylinder_2d as fc
+    from sphinxsys_jax.cases import fvm_cylinder_2d as fc
 
     case, fluid = fc.build_case()
     s = fc.init_sim(case, fluid)

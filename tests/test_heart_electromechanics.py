@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import heart_electromechanics_3d as hm
+from sphinxsys_jax.cases import heart_electromechanics_3d as hm
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

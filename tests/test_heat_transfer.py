@@ -10,7 +10,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import heat_transfer_2d as ht
+from sphinxsys_jax.cases import heat_transfer_2d as ht
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

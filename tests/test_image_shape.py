@@ -6,8 +6,8 @@ particle generation from the image."""
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import image as I
-from sphinxsys_tpu.core.generators import generate_lattice
+from sphinxsys_jax.core import image as I
+from sphinxsys_jax.core.generators import generate_lattice
 
 RADIUS = 20.0
 

@@ -14,8 +14,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import impact_patch_2d as ip
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.cases import impact_patch_2d as ip
+from sphinxsys_jax.io import regression as rg
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

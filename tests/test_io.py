@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.io import regression as rg
-from sphinxsys_tpu.io.vtk import write_vtp
-from sphinxsys_tpu.io import restart as rst
+from sphinxsys_jax.io import regression as rg
+from sphinxsys_jax.io.vtk import write_vtp
+from sphinxsys_jax.io import restart as rst
 
 REF_DB = "/root/reference/tests/2d_examples/test_2d_dambreak/regression_test_tool"
 
@@ -81,7 +81,7 @@ def test_vtp_writer(tmp_path):
 
 
 def test_restart_roundtrip(tmp_path):
-    from sphinxsys_tpu.core.state import make_fluid_state
+    from sphinxsys_jax.core.state import make_fluid_state
 
     rng = np.random.default_rng(1)
     fluid = make_fluid_state(rng.uniform(size=(10, 2)), 0.01, 1.0)
@@ -95,7 +95,7 @@ def test_restart_roundtrip(tmp_path):
 
 
 def test_reload_roundtrip(tmp_path):
-    from sphinxsys_tpu.core.state import make_fluid_state
+    from sphinxsys_jax.core.state import make_fluid_state
 
     fluid = make_fluid_state(np.random.default_rng(2).uniform(size=(7, 2)), 0.01, 1.0)
     rst.write_reload(str(tmp_path), "body", fluid)
@@ -111,7 +111,7 @@ def test_restart_continue_matches_uninterrupted():
     import tempfile
 
     import jax
-    from sphinxsys_tpu.cases import dambreak_2d as db
+    from sphinxsys_jax.cases import dambreak_2d as db
 
     case, fluid = db.build_case(dx=0.1)
     step = db.make_advection_step(case)
@@ -245,7 +245,7 @@ def test_velocity_out_of_bound_dump(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from sphinxsys_tpu.io.failure import WriteToVtpIfVelocityOutOfBound
+    from sphinxsys_jax.io.failure import WriteToVtpIfVelocityOutOfBound
 
     body = {"Position": jnp.zeros((4, 2)), "Velocity": jnp.zeros((4, 2)),
             "NReal": jnp.asarray(4)}

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.core import kernels as K
+from sphinxsys_jax.core import kernels as K
 
 KERNELS = [K.WendlandC2, K.CubicBSpline, K.Quadratic]
 
@@ -82,7 +82,7 @@ def test_lattice_number_density():
 def test_laguerre_gauss_and_hyperbolic_normalized():
     """Kernels integrate to ~1 over their support in 1/2/3D."""
     import numpy as np
-    from sphinxsys_tpu.core.kernels import LaguerreGauss, Hyperbolic
+    from sphinxsys_jax.core.kernels import LaguerreGauss, Hyperbolic
 
     for K in (LaguerreGauss, Hyperbolic):
         k = K(h=1.0)
@@ -104,7 +104,7 @@ def test_laguerre_gauss_and_hyperbolic_normalized():
 
 def test_tabulated_matches_analytic():
     import numpy as np
-    from sphinxsys_tpu.core.kernels import WendlandC2, TabulatedKernel
+    from sphinxsys_jax.core.kernels import WendlandC2, TabulatedKernel
 
     k = WendlandC2(h=0.013)
     tk = TabulatedKernel(k, resolution=40)
@@ -121,7 +121,7 @@ def test_tabulated_matches_analytic():
 
 def test_anisotropic_reduces_to_isotropic_and_stretches():
     import numpy as np
-    from sphinxsys_tpu.core.kernels import WendlandC2, AnisotropicKernel
+    from sphinxsys_jax.core.kernels import WendlandC2, AnisotropicKernel
 
     k = WendlandC2(h=0.1)
     iso = AnisotropicKernel(k, (1.0, 1.0))

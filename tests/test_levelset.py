@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.kernels import WendlandC2
-from sphinxsys_tpu.meshes import LevelSetShape, build_levelset
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.kernels import WendlandC2
+from sphinxsys_jax.meshes import LevelSetShape, build_levelset
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -92,10 +92,10 @@ def test_levelset_shape_drives_relaxation():
     """LevelSetShape is a drop-in Shape: particle relaxation against the
     mesh-probed geometry keeps particles inside and the surface bounded
     (the reference's level-set-backed RelaxationStepInner use)."""
-    from sphinxsys_tpu.core.generators import generate_lattice
-    from sphinxsys_tpu.physics.relax import relax_shape
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.neighbors import grid_from_bounds
+    from sphinxsys_jax.core.generators import generate_lattice
+    from sphinxsys_jax.physics.relax import relax_shape
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.neighbors import grid_from_bounds
 
     ls = _circle_ls()
     shape = LevelSetShape(ls)
@@ -119,7 +119,7 @@ def test_levelset_shape_drives_relaxation():
 def test_levelset_3d_sphere_probes():
     """3D packaged level set of a sphere: signed-distance and normal
     probes match the analytic SDF; reinitialization keeps them."""
-    from sphinxsys_tpu.core import geometry as G
+    from sphinxsys_jax.core import geometry as G
 
     R = 1.0
     sphere = G.Ball(center=(0.0, 0.0, 0.0), radius=R)
@@ -145,8 +145,8 @@ def test_levelset_3d_kernel_integral_half_space():
     """3D cut-cell kernel integrals against the half-space analytic limit:
     deep inside the positive region the W-integral is 1, at the flat
     interface it is 1/2, deep negative it is 0."""
-    from sphinxsys_tpu.core import geometry as G
-    from sphinxsys_tpu.core.kernels import WendlandC2
+    from sphinxsys_jax.core import geometry as G
+    from sphinxsys_jax.core.kernels import WendlandC2
 
     DX = 0.1
     # half-space x > 0 via a large box: phi = -x
@@ -170,11 +170,11 @@ def test_levelset_3d_body_fitted_relaxation():
     """test_3d_particle_relaxation analog: relax a lattice inside a
     3D level-set sphere — particles stay inside the probed surface and
     the configuration stays finite (reload-ready)."""
-    from sphinxsys_tpu.core import geometry as G
-    from sphinxsys_tpu.core.generators import generate_lattice
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.neighbors import grid_from_bounds
-    from sphinxsys_tpu.physics.relax import relax_shape
+    from sphinxsys_jax.core import geometry as G
+    from sphinxsys_jax.core.generators import generate_lattice
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.neighbors import grid_from_bounds
+    from sphinxsys_jax.physics.relax import relax_shape
 
     R = 1.0
     dx = 0.125
@@ -202,9 +202,9 @@ def test_trimesh_to_levelset_scaling_path():
     """STL/triangle-mesh bodies at scale: the dense O(N_query * faces)
     trimesh signed distance runs ONCE at level-set build; every runtime
     probe (SDF / normals / kernel integrals / relaxation) is then an O(1)
-    package lookup — the TPU answer to the reference's BVH
+    package lookup — the XLA answer to the reference's BVH
     (TriangleMeshDistance.h)."""
-    from sphinxsys_tpu.core.trimesh import icosphere_mesh
+    from sphinxsys_jax.core.trimesh import icosphere_mesh
 
     mesh = icosphere_mesh(radius=1.0, subdivisions=3)  # 1280 faces
     ls = build_levelset(mesh, (-1.6, -1.6, -1.6), (1.6, 1.6, 1.6),

@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import lid_driven_cavity_2d as cav
-from sphinxsys_tpu.physics import viscosity as vc
+from sphinxsys_jax.cases import lid_driven_cavity_2d as cav
+from sphinxsys_jax.physics import viscosity as vc
 
 
 def test_cavity_shear_thinning_flow_develops():

@@ -16,7 +16,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def test_mr_beam_first_swing_matches_uniform():
-    from sphinxsys_tpu.cases import mr_cantilever_beam_2d as mr
+    from sphinxsys_jax.cases import mr_cantilever_beam_2d as mr
 
     case, s = mr.build_case()
     # mixed resolutions present

@@ -16,7 +16,7 @@ def test_mr_cylinder_startup_physics():
     velocity there), drag is downstream-positive and lift ~ 0, and the
     refinement strip keeps its per-particle smoothing lengths through the
     emitter/disposer recycling."""
-    from sphinxsys_tpu.cases import mr_cylinder_2d as mc
+    from sphinxsys_jax.cases import mr_cylinder_2d as mc
 
     case, fluid = mc.build_case()
     s = mc.init_sim(case, fluid)
@@ -51,7 +51,7 @@ def test_mr_cylinder_startup_physics():
 
 
 def test_mr_cylinder_drag_vs_reference_band():
-    """The committed TPU production run (benchmarks/
+    """The committed production run (benchmarks/
     run_mr_cylinder_validation.py, t = 0..30, relaxed IC) must sit inside
     the reference's Cylinder_TotalViscousForceFromFluid DTW band: all three
     committed reference runs settle in 0.30-0.38 after the wake develops
@@ -61,9 +61,8 @@ def test_mr_cylinder_drag_vs_reference_band():
     advection step, cancelling the viscous prior force down to its
     per-step delta (see cases/mr_cylinder_2d.py _startup_force) — with the
     BaseForcePrior delta convention restored the measured tail is
-    0.308 +- 0.014.  The curve is regenerated on TPU each round (round
-    checklist) — this gate catches drift in the committed artifact."""
-    hist = np.load("tests/golden/mr_cylinder/drag_tpu_r4.npy")
+    0.308 +- 0.014.  This gate catches drift in the committed artifact."""
+    hist = np.load("tests/golden/mr_cylinder/drag_r4.npy")
     t, fx, fy = hist[:, 0], hist[:, 1], hist[:, 2]
     assert t[-1] >= 29.0
     tail = fx[t > 12.0]

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.neighbors import multilevel as mlv
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.neighbors import multilevel as mlv
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core.materials import Muscle
-from sphinxsys_tpu.physics import diffusion as df
+from sphinxsys_jax.core.materials import Muscle
+from sphinxsys_jax.physics import diffusion as df
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -55,10 +55,10 @@ def test_active_contraction_stress_reaction():
 def test_active_muscle_beam_contracts():
     """Uniformly activating a free muscle beam along its fiber must
     shorten it (ActiveMuscle + total-Lagrangian solids composition)."""
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
-    from sphinxsys_tpu.neighbors import (grid_from_bounds, build_cell_table,
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.neighbors import (grid_from_bounds, build_cell_table,
                                          build_neighbor_list)
-    from sphinxsys_tpu.physics import solid as sd
+    from sphinxsys_jax.physics import solid as sd
 
     dx = 0.02
     ad = SPHAdaptation(spacing=dx, dim=2)

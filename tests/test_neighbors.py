@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.neighbors import (
+from sphinxsys_jax.neighbors import (
     grid_from_bounds, build_cell_table, build_neighbor_list, brute_force_neighbors,
 )
-from sphinxsys_tpu.neighbors.cell_list import morton_key, spatial_sort_permutation
+from sphinxsys_jax.neighbors.cell_list import morton_key, spatial_sort_permutation
 
 
 def random_cloud(n, dim, seed, lo=0.0, hi=1.0):

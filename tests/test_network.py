@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.network import generate_network
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.network import generate_network
 
 
 _CACHE = {}
@@ -70,7 +70,7 @@ def test_tree_adjacency_and_diffusion():
     diffusion spreads from the root along the network monotonically with
     total concentration conserved (the reference's network-diffusion use of
     TreeInnerRelation)."""
-    from sphinxsys_tpu.neighbors.neighbor_list import NeighborList
+    from sphinxsys_jax.neighbors.neighbor_list import NeighborList
 
     net = _sphere_net()
     n = net.n_particles

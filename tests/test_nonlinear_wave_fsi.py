@@ -8,7 +8,7 @@ dispersion relation, the piston radiates, and the tension-leg platform
 holds station — the buoyancy excess (the structure displaces ~3x its
 weight at the prescribed draft, h:124-134) keeps both tethers TAUT with
 the structure pinned near its initial position.  The full 20 s focused
-impact at the reference resolution is the offline TPU validation
+impact at the reference resolution is the offline validation
 (benchmarks/run_wave_fsi_validation.py).
 """
 
@@ -21,8 +21,8 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def test_focused_packet_dispersion_and_strokes():
-    from sphinxsys_tpu.physics import wavemaker as wm
-    from sphinxsys_tpu.cases import nonlinear_wave_fsi_2d as nw
+    from sphinxsys_jax.physics import wavemaker as wm
+    from sphinxsys_jax.cases import nonlinear_wave_fsi_2d as nw
 
     pk = wm.make_focused_packet(dtype=jnp.float64, **nw.PACKET)
     om = np.asarray(pk.om)
@@ -49,7 +49,7 @@ def test_cable_springs_hold_tension_leg():
     """Static check of the SimTK::CableSpring law on the built case: at the
     initial draft the buoyancy excess is ~1.3 kN, so equilibrium needs a
     ~2 mm tether stretch; _cable_forces restores with that stiffness."""
-    from sphinxsys_tpu.cases import nonlinear_wave_fsi_2d as nw
+    from sphinxsys_jax.cases import nonlinear_wave_fsi_2d as nw
 
     case, _ = nw.build_case(dx=0.06)
     rb = case.rb0
@@ -65,7 +65,7 @@ def test_cable_springs_hold_tension_leg():
 
 
 def test_wave_fsi_station_keeping():
-    from sphinxsys_tpu.cases import nonlinear_wave_fsi_2d as nw
+    from sphinxsys_jax.cases import nonlinear_wave_fsi_2d as nw
 
     case, fluid = nw.build_case(dx=0.06)
     com0 = np.asarray(case.rb0.com)

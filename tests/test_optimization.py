@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import optimization as op
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import optimization as op
 
 
 def setup(dx=0.05):

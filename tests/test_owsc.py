@@ -23,7 +23,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 def test_pin_joint_dynamics_units():
     """pin_joint_step: free undamped pendulum-spring about the pivot
     oscillates at omega_n = sqrt(k/I); the damper extracts energy."""
-    from sphinxsys_tpu.physics import rigid as rg
+    from sphinxsys_jax.physics import rigid as rg
 
     pj = rg.PinJoint2D(pivot=jnp.zeros(2), theta=jnp.asarray(0.2),
                        omega=jnp.asarray(0.0), mass=jnp.asarray(1.0),
@@ -46,7 +46,7 @@ def test_piston_stroke_dispersion():
     """Wavemaker coefficients: dispersion root and Biesel stroke for the
     OWSC target (the reference prints 'Wave stroke: ... frequency: ...',
     owsc.h:321-323): om = pi, k solves om^2 = g k tanh(k h)."""
-    from sphinxsys_tpu.physics import wavemaker as wm
+    from sphinxsys_jax.physics import wavemaker as wm
 
     piston = wm.make_piston(5.0, 10.0, 0.691, 9.81, model_scale=25.0)
     assert abs(piston.omega - np.pi) < 1e-12
@@ -57,7 +57,7 @@ def test_piston_stroke_dispersion():
 
 
 def test_owsc_wave_train_drives_flap():
-    from sphinxsys_tpu.cases import owsc_2d as ow
+    from sphinxsys_jax.cases import owsc_2d as ow
 
     case, fluid = ow.build_case(dx=0.06)
     s = ow.init_sim(case, fluid)

@@ -8,7 +8,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import passive_cantilever_3d as pc
+from sphinxsys_jax.cases import passive_cantilever_3d as pc
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

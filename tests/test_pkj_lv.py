@@ -13,7 +13,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def test_network_driven_activation_and_contraction():
-    from sphinxsys_tpu.cases import pkj_lv_electrocontraction_3d as pkj
+    from sphinxsys_jax.cases import pkj_lv_electrocontraction_3d as pkj
 
     case, s = pkj.build_case()
     assert case.n_pkj > 30          # the tree grew over the inner surface

@@ -7,7 +7,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import poiseuille_flow_2d as pf
+from sphinxsys_jax.cases import poiseuille_flow_2d as pf
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import porous as pm
-from sphinxsys_tpu.physics import solid as sd
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import porous as pm
+from sphinxsys_jax.physics import solid as sd
 
 
 def make_block(nx=20, ny=8, dx=0.05):

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import pulsatile_poiseuille_2d as pp
+from sphinxsys_jax.cases import pulsatile_poiseuille_2d as pp
 
 
 def test_womersley_startup_consistency():
@@ -58,7 +58,7 @@ def test_conveyor_exact_count_conservation():
     for the stale-prev_pos double-clone bug: a fresh clone's slot carried
     a FAR prev position that satisfied the other buffer's one-sided
     crossing predicate)."""
-    from sphinxsys_tpu.physics import boundary as bdy
+    from sphinxsys_jax.physics import boundary as bdy
 
     dx, dl, dh = 1.0, 40.0, 4.0
     xs = np.arange(dx / 2, dl, dx)

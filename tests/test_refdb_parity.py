@@ -14,21 +14,21 @@ diagnosed cause:
 
 * Taylor-Green: the KE curve's first ~0.5 s is a chaotic lattice-breaking
   transient whose violence depends on float precision (the reference runs
-  f64; our TPU curve is f32).  Measured at dx=0.02 with this framework:
+  f64; our curve is f32).  Measured at dx=0.02 with this framework:
   KE(t=1.0) = 0.0199 (f32) vs 0.0133 (f64) from bit-identical physics —
   a 33% spread from precision alone, larger than our distance to the
   reference.  Post-transient both decay at the analytic viscous rate
   (ours -1.64 vs analytic 16*pi^2*nu = -1.58), which
   tests/test_taylor_green.py asserts tightly.
 * Dambreak: ~3% systematically higher mechanical energy through impact;
-  an f64 CPU rerun reproduces the f32 TPU distance to 6% (0.244-0.258 vs
+  an f64 CPU rerun reproduces the f32 distance to 6% (0.244-0.258 vs
   0.26), so it is a discretization-order difference, not round-off.
 
 Curve provenance: tests/golden/refdb/*, regenerated by
   PYTHONPATH=. python benchmarks/run_refdb_parity.py <case>
 on the commit noted in each file's git log.  Regenerate whenever the
 fluid ops change; the committed-curve scheme is the same CI economy the
-fsi2 validation uses (runs take ~15-45 min on TPU).
+fsi2 validation uses.
 """
 
 import os
@@ -36,7 +36,7 @@ import os
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.io import regression as rg
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OURS = os.path.join(HERE, "golden", "refdb")
@@ -78,7 +78,7 @@ def test_taylor_green_maximum_speed_vs_reference_db():
 def test_dambreak_energy_vs_reference_db():
     """Dambreak WaterBody_TotalMechanicalEnergy (Dambreak.cpp cadence:
     every 200 advection steps to t=20) vs the reference's 3 committed
-    runs.  Observed DTW 0.244-0.258 on the TPU f32 block engine AND on an
+    runs.  Observed DTW 0.244-0.258 on the f32 block engine AND on an
     f64 CPU rerun (systematic ~3% energy offset through impact); the
     reference's own pairwise spread is 0.036-0.052.  Gate 0.35."""
     _assert_dtw("dambreak_2d", "test_2d_dambreak",
@@ -157,7 +157,7 @@ def test_stfb_position_vs_reference_db():
 def test_dambreak_3d_energy_vs_reference_db():
     """3D dambreak WaterBody_TotalMechanicalEnergy (21 snapshots to t=10,
     normalized units) vs /root/reference/tests/3d_examples/test_3d_dambreak.
-    Curve generated on the TPU 3D block/Pallas engine at the reference
+    Curve generated on the 3D block engine at the reference
     dx=0.05 (run_refdb_parity.py dambreak_3d).  Observed DTW 0.046-0.047
     (max pointwise 0.008 on the 0.50->0.21 energy decay); the stored
     threshold 0.03 sits on a near-bit-identical rerun spread of 0.0013,
@@ -211,7 +211,7 @@ def test_column_collapse_energy_vs_reference_db():
     """Granular column collapse TotalMechanicalEnergy vs the reference DB
     (column_collapse.cpp, every 1000 acoustic steps to t=0.8).
 
-    Observed DTW 4.77-4.81 (regenerated 2026-08-18 on TPU): the early
+    Observed DTW 4.77-4.81 (regenerated 2026-08-18): the early
     collapse tracks the reference to <0.3% but our column arrests at
     E=13.48 vs the reference's 13.79 — a ~2%-of-range systematic from
     Drucker-Prager arrest details (Jacobi vs sequential plastic sweeps).

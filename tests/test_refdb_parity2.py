@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.io import regression as rg
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -50,7 +50,7 @@ def test_oscillating_beam_tip_vs_reference_db(integrator, ref_case, gate):
     """Tip Position (100-snapshot ensemble DB over T0 = 1).  Measured
     DTW-to-ensemble-mean 0.496 (pk2) / 0.499 (cauchy) on a 0.2-signal —
     ~0.005/snapshot, 7% of the 0.07 tip amplitude.  Gate 0.8."""
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case, s = ob.build_case(integrator=integrator)
     run = ob.make_run_chunk(case)
@@ -73,7 +73,7 @@ def test_oscillating_beam_ul_ke_vs_reference_db():
     the first 8 snapshots track within 1%; accumulated phase drift over
     100 snapshots gives DTW 8.94 (2%/snapshot of the 4.06 scale).
     Gate 15 + the exact-KE0 and first-minimum checks below."""
-    from sphinxsys_tpu.cases import oscillating_beam_ul_2d as obul
+    from sphinxsys_jax.cases import oscillating_beam_ul_2d as obul
 
     case, beam = obul.build_case()
     s = obul.init_sim(case, beam)
@@ -100,7 +100,7 @@ def test_anisotropic_beam_tip_vs_reference_db():
     the oscillation period differs by ~10% (coarse 4x-anisotropic axial
     sampling), which DTW cannot fully absorb on 100 snapshots.  Gate 4
     plus the amplitude check."""
-    from sphinxsys_tpu.cases import anisotropic_beam_2d as ab
+    from sphinxsys_jax.cases import anisotropic_beam_2d as ab
 
     case, s = ab.build_case()
     run = ab.make_run_chunk(case)
@@ -124,7 +124,7 @@ def test_muscle_solid_contact_ke_vs_reference_db():
     iterations to t = 0.1).  Measured DTW 0.0067-0.0122 vs the reference
     runs' own spread 0.0022-0.0055 (the KE impact spike lands between
     iteration-cadenced snapshots differently per run).  Gate 0.02."""
-    from sphinxsys_tpu.cases import muscle_solid_contact_3d as mc
+    from sphinxsys_jax.cases import muscle_solid_contact_3d as mc
 
     case, s = mc.build_case()
     run = mc.make_run_chunk(case)
@@ -146,7 +146,7 @@ def test_twisting_rigid_elastic_bar_vs_febio():
     """Steady-state interface displacements vs the FEBio reference
     (reference_data/displacement; the reference's own gtest gate is 15%).
     Measured 3.6-7.9% at res_factor 2; gate 12%."""
-    from sphinxsys_tpu.cases import twisting_rigid_elastic_bar_3d as bar
+    from sphinxsys_jax.cases import twisting_rigid_elastic_bar_3d as bar
 
     case, s = bar.build_case()
     run = bar.make_run_chunk(case)
@@ -171,7 +171,7 @@ def test_repose_angle_energy_vs_reference_db():
     ~1e-4, stored threshold 0.15).  Measured DTW 1.64 on the 1.5-4.0
     signal (settling sequence 3.99/3.05/1.90/1.55/1.52) — a few-% energy
     family offset per snapshot.  Gate 2.5 + settled-endpoint check."""
-    from sphinxsys_tpu.cases import repose_angle_3d as ra
+    from sphinxsys_jax.cases import repose_angle_3d as ra
 
     case, soil = ra.build_case()
     s = ra.init_sim(case, soil)

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import relax as rx
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import relax as rx
 
 
 def _setup(dx=0.05):
@@ -70,8 +70,8 @@ def test_ball_relaxation_converges_and_stays_inside():
 def test_reload_roundtrip_of_relaxed_particles(tmp_path):
     """Relax -> write reload -> read reload (the reference's two-channel
     restart/reload split, io_base.h:148-166)."""
-    from sphinxsys_tpu.io import restart as rst
-    from sphinxsys_tpu.core.state import make_fluid_state
+    from sphinxsys_jax.io import restart as rst
+    from sphinxsys_jax.core.state import make_fluid_state
 
     dx = 0.05
     adaptation, grid = _setup(dx)

@@ -19,7 +19,7 @@ documented 2.5x of their gate to pin the curve's scale.
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.io.regression import dtw_distance
+from sphinxsys_jax.io.regression import dtw_distance
 
 
 REF_RUNS = np.array([
@@ -31,7 +31,7 @@ REF_RUNS = np.array([
 
 @pytest.fixture(scope="module")
 def implicit_run():
-    from sphinxsys_tpu.cases import implicit_relaxation_2d as ir
+    from sphinxsys_jax.cases import implicit_relaxation_2d as ir
     return ir.run_case(n_iterations=1000, record_every=200)
 
 
@@ -54,7 +54,7 @@ def test_implicit_relaxation_interior_uniformity(implicit_run):
     """The point of relaxation: interior particle spacing becomes uniform.
     Check nearest-neighbor distance spread tightens vs the randomized start.
     """
-    from sphinxsys_tpu.cases.implicit_relaxation_2d import DX
+    from sphinxsys_jax.cases.implicit_relaxation_2d import DX
 
     pos, _, pos0 = implicit_run
     pos = np.asarray(pos)
@@ -74,7 +74,7 @@ def test_shell_relaxation_mid_surface_and_normals():
     """test_2d_shell_particle_relaxation: particles relax onto the annulus
     mid-circle (r = 25) and the predicted normals are radial with one global
     sign (the reference case has no DB; analytic oracle)."""
-    from sphinxsys_tpu.cases import shell_relaxation_2d as sr
+    from sphinxsys_jax.cases import shell_relaxation_2d as sr
 
     pos, normals, updated = sr.run_case(n_iterations=400)
     pos = np.asarray(pos)

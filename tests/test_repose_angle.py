@@ -12,7 +12,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def repose_run():
-    from sphinxsys_tpu.cases import repose_angle_3d as ra
+    from sphinxsys_jax.cases import repose_angle_3d as ra
 
     case, soil = ra.build_case(dx=ra.RADIUS / 5)
     s = ra.init_sim(case, soil)
@@ -42,7 +42,7 @@ def test_energy_settles_at_reference_value(repose_run):
 def test_pile_forms_at_repose_slope(repose_run):
     """The settled pile's flank slope sits below the 30-deg friction angle
     (rolling spreads the toe) but the pile is a genuine cone, not a puddle."""
-    from sphinxsys_tpu.cases import repose_angle_3d as ra
+    from sphinxsys_jax.cases import repose_angle_3d as ra
 
     case, s, _, _ = repose_run
     n = case.n_soil

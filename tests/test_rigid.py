@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import rigid as rg
+from sphinxsys_jax.physics import rigid as rg
 
 
 def test_rigid_ballistics_with_spin():
@@ -31,7 +31,7 @@ def test_rigid_ballistics_with_spin():
 
 
 def test_constraint_imposes_rigid_motion():
-    from sphinxsys_tpu.core.state import make_solid_state
+    from sphinxsys_jax.core.state import make_solid_state
 
     pos0 = np.asarray([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
     state = dict(make_solid_state(pos0, 0.1, 1.0))
@@ -58,7 +58,7 @@ def test_floating_block_archimedes(_=None):
     """A half-density block dropped at the free surface must settle into a
     heave oscillation about the Archimedes draft (rho_ratio * height), with
     the theoretical heave period 2 pi sqrt(m / (rho g A))."""
-    from sphinxsys_tpu.cases import floating_body_2d as fb
+    from sphinxsys_jax.cases import floating_body_2d as fb
 
     case, fluid = fb.build_case(dx=0.025)
     s = fb.init_sim(case, fluid)

@@ -9,7 +9,7 @@ trajectory where the sag develops.
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import roof_3d as rf
+from sphinxsys_jax.cases import roof_3d as rf
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ conservation while the patch deforms — the reference DB holds
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import rotation_patch_2d as rp
+from sphinxsys_jax.cases import rotation_patch_2d as rp
 
 
 def test_rotating_patch_conserves_kinetic_energy():

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import self_contact_2d as sc
-from sphinxsys_tpu.io import regression as rg
-from sphinxsys_tpu.neighbors import build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import contact as ct
+from sphinxsys_jax.cases import self_contact_2d as sc
+from sphinxsys_jax.io import regression as rg
+from sphinxsys_jax.neighbors import build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import contact as ct
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

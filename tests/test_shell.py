@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import shell as sh
+from sphinxsys_jax.physics import shell as sh
 
 
 def test_transformation_matrix_2d():
@@ -36,7 +36,7 @@ def test_pseudo_normal_rotation_consistency():
 
 
 def test_reduced_kernel_uses_lower_dim_factors():
-    from sphinxsys_tpu.core.kernels import WendlandC2
+    from sphinxsys_jax.core.kernels import WendlandC2
 
     k = WendlandC2(h=0.01)
     rk = sh.ReducedKernel(k)
@@ -47,7 +47,7 @@ def test_reduced_kernel_uses_lower_dim_factors():
 
 @pytest.fixture(scope="module")
 def shell_run():
-    from sphinxsys_tpu.cases import shell_cantilever_2d as sc
+    from sphinxsys_jax.cases import shell_cantilever_2d as sc
 
     case, s = sc.build_case()
     run = sc.make_run_chunk(case)
@@ -130,7 +130,7 @@ def test_rotation_accel_3d_small_angle_limit():
 
 @pytest.fixture(scope="module")
 def plate_run():
-    from sphinxsys_tpu.cases import shell_plate_3d as sp
+    from sphinxsys_jax.cases import shell_plate_3d as sp
 
     case, s = sp.build_case()       # dx = PL/20
     run = sp.make_run_chunk(case)
@@ -146,7 +146,7 @@ def test_plate_3d_matches_2d_shell_at_matched_resolution(plate_run):
     """nu=0 cylindrical plate bending == beam: the 3D plate must track the
     2D shell run at the same dx (measured: 0.380 vs 0.360 at PL/20; both
     converge toward the analytic 0.277 with resolution)."""
-    import sphinxsys_tpu.cases.shell_cantilever_2d as sc
+    import sphinxsys_jax.cases.shell_cantilever_2d as sc
 
     case, s, t, d = plate_run
     crossings = t[np.where(np.diff(np.sign(d)))[0]]

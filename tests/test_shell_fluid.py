@@ -15,13 +15,13 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def _kernel(dx, dim):
-    from sphinxsys_tpu.core.adaptation import SPHAdaptation
+    from sphinxsys_jax.core.adaptation import SPHAdaptation
 
     return SPHAdaptation(spacing=dx, dim=dim)
 
 
 def _shell_state(pos, normal, dx, thickness, rho0=1.0):
-    from sphinxsys_tpu.physics import shell as sh
+    from sphinxsys_jax.physics import shell as sh
 
     mat = types.SimpleNamespace(rho0=rho0)
     st = sh.make_shell_state(np.asarray(pos), np.asarray(normal), dx,
@@ -32,7 +32,7 @@ def _shell_state(pos, normal, dx, thickness, rho0=1.0):
 
 
 def _nl(pos_q, pos_s, grid, cutoff, k_max, cap=32):
-    from sphinxsys_tpu.neighbors import build_cell_table, build_neighbor_list
+    from sphinxsys_jax.neighbors import build_cell_table, build_neighbor_list
 
     n_q = jnp.int32(len(pos_q))
     n_s = jnp.int32(len(pos_s))
@@ -45,9 +45,9 @@ def _nl(pos_q, pos_s, grid, cutoff, k_max, cap=32):
 def test_shell_curvature_circle():
     """Normal-gradient curvature of a circle of radius R with outward
     normals is 1/R (AverageShellCurvature oracle)."""
-    from sphinxsys_tpu.neighbors import grid_from_bounds
-    from sphinxsys_tpu.physics import shell as sh
-    from sphinxsys_tpu.physics import shell_fluid as sf
+    from sphinxsys_jax.neighbors import grid_from_bounds
+    from sphinxsys_jax.physics import shell as sh
+    from sphinxsys_jax.physics import shell_fluid as sf
 
     R = 1.0
     n_part = 128
@@ -69,9 +69,9 @@ def test_flat_shell_contact_equals_explicit_wall_slab():
     """For a FLAT shell (k = 0) the dummy-particle stack IS a lattice wall
     slab: the corrected pair sums must match plain kernel sums over an
     explicit multi-layer wall with one fluid particle, to float roundoff."""
-    from sphinxsys_tpu.neighbors import grid_from_bounds
-    from sphinxsys_tpu.physics import shell_fluid as sf
-    from sphinxsys_tpu.physics.pair import pair_geometry
+    from sphinxsys_jax.neighbors import grid_from_bounds
+    from sphinxsys_jax.physics import shell_fluid as sf
+    from sphinxsys_jax.physics.pair import pair_geometry
 
     dx = 0.1
     ad = _kernel(dx, 2)
@@ -121,7 +121,7 @@ def test_hydrostatic_fsi_matches_analytic_deflection():
     (test_2d_hydrostatic_fluid_shell.cpp:395-409; full run in
     benchmarks/run_hydrofsi_validation.py settles flat at -8.23e-5 by
     t = 0.14, err 13.2%)."""
-    from sphinxsys_tpu.cases import hydrostatic_fsi_2d as hf
+    from sphinxsys_jax.cases import hydrostatic_fsi_2d as hf
 
     case, fluid, gate = hf.build_case(dx=0.025)
     s = hf.init_sim(case, fluid, gate)

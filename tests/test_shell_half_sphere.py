@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.surface_cvt import (cvt_relax_on_surface,
+from sphinxsys_jax.core.surface_cvt import (cvt_relax_on_surface,
                                             fibonacci_sphere,
                                             min_pair_distance,
                                             sphere_projector)
@@ -38,7 +38,7 @@ def test_half_sphere_shell_stays_stable():
     """The reference's stability gates (cpp:262-286): run under tangential
     gravity with velocity+rotation damping; no NaN, no time-step
     collapse (dt >= max_dt/1e3), displacement bounded (small vs R)."""
-    from sphinxsys_tpu.cases import shell_stability_half_sphere_3d as hs
+    from sphinxsys_jax.cases import shell_stability_half_sphere_3d as hs
 
     case, s = hs.build_case(cvt_iters=100)
     run = hs.make_run_chunk(case)

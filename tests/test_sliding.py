@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import sliding_2d as sl
+from sphinxsys_jax.cases import sliding_2d as sl
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -32,7 +32,7 @@ def test_sliding_matches_analytic_and_reference_db():
 
     # endpoint vs the reference ensemble DB (mean of 4+ reference runs);
     # gate = 2 sigma of their own ensemble + one particle spacing
-    from sphinxsys_tpu.io.regression import EnsembleAverageRegressionTest
+    from sphinxsys_jax.io.regression import EnsembleAverageRegressionTest
 
     db = EnsembleAverageRegressionTest(REF_DB, "CubeObserver", "Position")
     mean, var = db.read_db()

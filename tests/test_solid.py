@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.materials import SaintVenantKirchhoffSolid, NeoHookeanSolid
-from sphinxsys_tpu.physics import solid as sd
+from sphinxsys_jax.core.materials import SaintVenantKirchhoffSolid, NeoHookeanSolid
+from sphinxsys_jax.physics import solid as sd
 
 
 def test_svk_stress_zero_at_identity():
@@ -47,7 +47,7 @@ def test_sound_speed():
 
 @pytest.fixture(scope="module")
 def beam_run():
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case, s = ob.build_case(dx=ob.PH / 6)  # coarse for CI speed
     run = ob.make_run_chunk(case)
@@ -62,7 +62,7 @@ def test_beam_correction_matrix_is_identity_in_bulk(beam_run):
     case, s, _ = beam_run
     B = np.asarray(s.solid["LinearGradientCorrectionMatrix"])
     pos0 = np.asarray(s.solid["InitialPosition"])[: case.n_solid]
-    from sphinxsys_tpu.cases.oscillating_beam_2d import PL, PH
+    from sphinxsys_jax.cases.oscillating_beam_2d import PL, PH
     bulk = (np.abs(pos0[:, 1]) < PH / 4) & (pos0[:, 0] > 0.02) & (pos0[:, 0] < PL - 0.02)
     # in the bulk of a uniform lattice B ~ I
     err = np.abs(B[: case.n_solid][bulk] - np.eye(2)).max()
@@ -95,7 +95,7 @@ def test_beam_energy_bounded(beam_run):
     """No spurious energy growth: kinetic energy stays below its initial
     value (converted to strain energy and back, plus damping)."""
     case, s, _ = beam_run
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case2, s0 = ob.build_case(dx=ob.PH / 6)
     ke0 = float(jnp.sum(0.5 * s0.solid["Mass"] *
@@ -111,7 +111,7 @@ def test_beam_energy_bounded(beam_run):
 # ---------------------------------------------------------------------------
 
 def test_fene_neo_hookean_matches_neo_hookean_at_small_strain():
-    from sphinxsys_tpu.core.materials import FeneNeoHookeanSolid
+    from sphinxsys_jax.core.materials import FeneNeoHookeanSolid
 
     m = FeneNeoHookeanSolid(rho0=1.0, youngs_modulus=1.0e3, poisson_ratio=0.3,
                             j1_m=10.0)
@@ -127,7 +127,7 @@ def test_fene_neo_hookean_matches_neo_hookean_at_small_strain():
 
 
 def test_orthotropic_solid_principal_stiffness_ordering():
-    from sphinxsys_tpu.core.materials import OrthotropicSolid
+    from sphinxsys_jax.core.materials import OrthotropicSolid
 
     m = OrthotropicSolid(rho0=1.0,
                          a=((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)),
@@ -144,7 +144,7 @@ def test_orthotropic_solid_principal_stiffness_ordering():
 
 
 def test_hardening_plastic_radial_return():
-    from sphinxsys_tpu.core.materials import HardeningPlasticSolid
+    from sphinxsys_jax.core.materials import HardeningPlasticSolid
 
     m = HardeningPlasticSolid(rho0=1.0, youngs_modulus=1.0e3,
                               poisson_ratio=0.3, yield_stress=5.0,
@@ -172,7 +172,7 @@ def test_hardening_plastic_radial_return():
 
 
 def test_nonlinear_hardening_saturates():
-    from sphinxsys_tpu.core.materials import NonLinearHardeningPlasticSolid
+    from sphinxsys_jax.core.materials import NonLinearHardeningPlasticSolid
 
     m = NonLinearHardeningPlasticSolid(
         rho0=1.0, youngs_modulus=1.0e3, poisson_ratio=0.3, yield_stress=5.0,
@@ -193,8 +193,8 @@ def test_cauchy_integrator_tracks_pk2(beam_run):
     """Integration1stHalfCauchy (cauchy_oscillating_beam.cpp) vs the PK2
     form: same SVK physics discretized through sigma(almansi) -> PK1 —
     first-swing trough must agree closely with the PK2 integrator."""
-    from sphinxsys_tpu.cases import oscillating_beam_cauchy_2d as obc
-    from sphinxsys_tpu.cases import oscillating_beam_2d as ob
+    from sphinxsys_jax.cases import oscillating_beam_cauchy_2d as obc
+    from sphinxsys_jax.cases import oscillating_beam_2d as ob
 
     case, s = obc.build_case(dx=ob.PH / 6)
     assert case.integrator == "cauchy"

@@ -11,7 +11,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.io.regression import read_result_xml
+from sphinxsys_jax.io.regression import read_result_xml
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -23,7 +23,7 @@ REF_NEO_DB = ("/root/reference/tests/3d_examples/"
 def test_neohookean_cantilever_tracks_reference_db():
     """Gravity droop of the corner observer: first minimum and settled
     value vs the reference DB (101 snapshots over t=1)."""
-    from sphinxsys_tpu.cases import passive_cantilever_neohookean_3d as nc
+    from sphinxsys_jax.cases import passive_cantilever_neohookean_3d as nc
 
     ref = np.asarray(read_result_xml(REF_NEO_DB))[0]  # (101, 3)
     ref_y = ref[:, 1]
@@ -55,7 +55,7 @@ def test_muscle_activation_pushes_fiber():
     """Negative fiber Ta ramp (compressive active stress): free face
     displaces in +x, y/z symmetric, displacement grows during the ramp
     (muscle_activation.cpp oracle)."""
-    from sphinxsys_tpu.cases import muscle_activation_3d as ma
+    from sphinxsys_jax.cases import muscle_activation_3d as ma
 
     case, body = ma.build_case(dx=1.0 / 12.0)
     s = ma.init_sim(case, body)

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.materials import NeoHookeanSolid
-from sphinxsys_tpu.neighbors import (build_cell_table, build_neighbor_list,
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.materials import NeoHookeanSolid
+from sphinxsys_jax.neighbors import (build_cell_table, build_neighbor_list,
                                      grid_from_bounds)
-from sphinxsys_tpu.physics import solid as sd
-from sphinxsys_tpu.physics import solid_lattice as sl
+from sphinxsys_jax.physics import solid as sd
+from sphinxsys_jax.physics import solid_lattice as sl
 
 
 def _box_case(nx=14, ny=6, nz=6, dx=0.1, valid_fn=None):
@@ -143,7 +143,7 @@ def test_second_half_matches():
 def test_twisting_column_engines_agree():
     """cases/twisting_column_3d with engine="lattice" must track the
     gather engine step-for-step (identical dt sequence and physics)."""
-    from sphinxsys_tpu.cases import twisting_column_3d as tc
+    from sphinxsys_jax.cases import twisting_column_3d as tc
 
     case_g, col_g = tc.build_case(dtype=jnp.float64)
     case_l, col_l = tc.build_case(dtype=jnp.float64, engine="lattice")

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import solid_shell_coupling_3d as ssc
-from sphinxsys_tpu.physics import solid_shell as ss
+from sphinxsys_jax.cases import solid_shell_coupling_3d as ssc
+from sphinxsys_jax.physics import solid_shell as ss
 
 
 @pytest.fixture(scope="module")

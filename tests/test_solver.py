@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu import solver as sv
+from sphinxsys_jax import solver as sv
 
 
 def test_trigger_by_interval():
@@ -26,7 +26,7 @@ def test_event_scheduler():
 
 
 def test_run_simulation_dambreak():
-    from sphinxsys_tpu.cases import dambreak_2d as db
+    from sphinxsys_jax.cases import dambreak_2d as db
 
     case, fluid = db.build_case(dx=0.1)
     s = db.init_sim(case, fluid)
@@ -45,7 +45,7 @@ def test_rk2_sequence_order():
     the Euler error scales ~dt, the RK2 error ~dt^2."""
     import numpy as np
 
-    from sphinxsys_tpu.solver import rk2_sequence
+    from sphinxsys_jax.solver import rk2_sequence
 
     def euler(state, dt):
         out = dict(state)

@@ -18,8 +18,8 @@ def test_spinning_plate_ke_vs_reference_db():
     228593.75 and must track the reference decay within 2% everywhere
     (measured: 1.1% high at the endpoint, 222878 vs 220414).  A plate torn
     by the tensile instability fails by an order of magnitude."""
-    from sphinxsys_tpu.cases import spinning_plate_2d as sp
-    from sphinxsys_tpu.io import regression as rg
+    from sphinxsys_jax.cases import spinning_plate_2d as sp
+    from sphinxsys_jax.io import regression as rg
 
     case, plate = sp.build_case()
     s = sp.init_sim(case, plate)

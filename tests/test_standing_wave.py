@@ -14,7 +14,7 @@ def test_standing_wave_period_matches_dispersion():
     """The gauge at the cos(pi x) antinode oscillates at
     T = 2 pi / sqrt(g k tanh(k h)) (measured 1.152 vs analytic 1.134 at
     dx=0.05 — 1.6%); amplitude stays bounded by the initial 0.1."""
-    from sphinxsys_tpu.cases import standing_wave_2d as sw
+    from sphinxsys_jax.cases import standing_wave_2d as sw
 
     case, fluid = sw.build_case(dx=0.05)
     s = sw.init_sim(case, fluid)

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import static_confinement_2d as sc
-from sphinxsys_tpu.io import regression as rg
+from sphinxsys_jax.cases import static_confinement_2d as sc
+from sphinxsys_jax.io import regression as rg
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -11,8 +11,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import stfb_2d as sf
-from sphinxsys_tpu.cases import stlw_2d as sw
+from sphinxsys_jax.cases import stfb_2d as sf
+from sphinxsys_jax.cases import stlw_2d as sw
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

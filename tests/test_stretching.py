@@ -12,7 +12,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import stretching_2d as st
+from sphinxsys_jax.cases import stretching_2d as st
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

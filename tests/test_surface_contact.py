@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.materials import NeoHookeanSolid
-from sphinxsys_tpu.neighbors import (build_cell_table, build_neighbor_list,
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.materials import NeoHookeanSolid
+from sphinxsys_jax.neighbors import (build_cell_table, build_neighbor_list,
                                      grid_from_bounds)
-from sphinxsys_tpu.physics import shell as sh
-from sphinxsys_tpu.physics import surface_contact as sc
+from sphinxsys_jax.physics import shell as sh
+from sphinxsys_jax.physics import surface_contact as sc
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -134,7 +134,7 @@ def test_three_ring_impact_smoke():
     """Short three-ring drive: the small ring flies, contacts propagate
     forces, everything stays finite (the full t=1 trajectory is gated vs
     the reference DB in test_golden_regression / the offline run)."""
-    from sphinxsys_tpu.cases import three_ring_impact_2d as tr
+    from sphinxsys_jax.cases import three_ring_impact_2d as tr
 
     case, s = tr.build_case(relax=False)  # lattice large ring: fast build
     run = tr.make_run_chunk(case)

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.physics import surface_tension as st
-from sphinxsys_tpu.cases import square_droplet_2d as sq
+from sphinxsys_jax.physics import surface_tension as st
+from sphinxsys_jax.cases import square_droplet_2d as sq
 
 
 def test_flat_interface_stress_is_tangential():

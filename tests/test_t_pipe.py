@@ -5,7 +5,7 @@ the same plateau within 2% with balanced injection/deletion."""
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.cases import t_pipe_2d as tp
+from sphinxsys_jax.cases import t_pipe_2d as tp
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

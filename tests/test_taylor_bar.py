@@ -12,7 +12,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.physics import continuum as cn
+from sphinxsys_jax.physics import continuum as cn
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -70,7 +70,7 @@ def test_taylor_bar_impact_ke_decay():
     """Coarse (dx = PL/6) impact: the KE decay must track the reference
     curve scale — the reference (dx = PL/12) is at KE/KE_0 = 0.417 by
     t = 1.2e-5 s and < 0.005 by t = 3.1e-5 s."""
-    from sphinxsys_tpu.cases import taylor_bar_ul_3d as tb
+    from sphinxsys_jax.cases import taylor_bar_ul_3d as tb
 
     case, col = tb.build_case_ci()
     s = tb.init_sim(case, col)

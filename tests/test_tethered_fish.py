@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import tethered_fish_2d as tf
-from sphinxsys_tpu.physics import articulated as ab
+from sphinxsys_jax.cases import tethered_fish_2d as tf
+from sphinxsys_jax.physics import articulated as ab
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -14,7 +14,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 
 def test_mr_taylor_green_decay():
-    from sphinxsys_tpu.cases import taylor_green_mr_2d as tg
+    from sphinxsys_jax.cases import taylor_green_mr_2d as tg
 
     case, fluid = tg.build_case()
     hr = np.asarray(fluid["SmoothingLengthRatio"])

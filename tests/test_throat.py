@@ -21,7 +21,7 @@ side and the reference tail.
 import jax.numpy as jnp
 import pytest
 
-from sphinxsys_tpu.cases import throat_2d as th
+from sphinxsys_jax.cases import throat_2d as th
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

@@ -5,7 +5,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import trimesh as tm
+from sphinxsys_jax.core import trimesh as tm
 
 
 def test_box_mesh_signed_distance_matches_analytic():
@@ -34,7 +34,7 @@ def test_icosphere_sdf_and_lattice_fill():
     np.testing.assert_allclose(sd, r - 0.5, atol=6e-3)
 
     # shape protocol works with the lattice generator
-    from sphinxsys_tpu.core.generators import generate_lattice
+    from sphinxsys_jax.core.generators import generate_lattice
 
     pos, vol = generate_lattice(sph, (-0.6, -0.6, -0.6), (0.6, 0.6, 0.6), 0.1)
     count = len(pos)

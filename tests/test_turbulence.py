@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.physics import turbulence as tb
+from sphinxsys_jax.physics import turbulence as tb
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
@@ -45,7 +45,7 @@ def test_inflow_turbulent_values():
 
 
 def _channel(t_end=1.0, **kw):
-    from sphinxsys_tpu.cases import turbulent_channel_2d as tc
+    from sphinxsys_jax.cases import turbulent_channel_2d as tc
 
     case, fluid = tc.build_case(**kw)
     s = tc.init_sim(case, fluid)
@@ -137,7 +137,7 @@ def test_k_epsilon_homogeneous_decay():
              "Velocity": jnp.zeros((n, dim)), "NReal": jnp.asarray(n)}
     fluid = tb.register_turbulence_fields(fluid, dim, k0, e0, 1e-9, 0.05)
 
-    from sphinxsys_tpu.neighbors.neighbor_list import NeighborList
+    from sphinxsys_jax.neighbors.neighbor_list import NeighborList
     empty = NeighborList(idx=jnp.full((n, 1), n, jnp.int32),
                          count=jnp.zeros((n,), jnp.int32),
                          overflow=jnp.zeros((), bool))

@@ -7,7 +7,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.cases import twisting_column_3d as tw
+from sphinxsys_jax.cases import twisting_column_3d as tw
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

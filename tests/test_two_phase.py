@@ -10,7 +10,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 
 @pytest.fixture(scope="module")
 def two_phase_run():
-    from sphinxsys_tpu.cases import two_phase_dambreak_2d as tp
+    from sphinxsys_jax.cases import two_phase_dambreak_2d as tp
 
     case, water, air = tp.build_case(dx=0.1)
     s = tp.init_sim(case, water, air)

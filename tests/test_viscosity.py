@@ -4,13 +4,13 @@ non_newtonian_dynamics counterparts)."""
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.core import geometry as G
-from sphinxsys_tpu.core.adaptation import SPHAdaptation
-from sphinxsys_tpu.core.generators import generate_lattice
-from sphinxsys_tpu.core.state import make_fluid_state
-from sphinxsys_tpu.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
-from sphinxsys_tpu.physics import fluid as fd
-from sphinxsys_tpu.physics import viscosity as vc
+from sphinxsys_jax.core import geometry as G
+from sphinxsys_jax.core.adaptation import SPHAdaptation
+from sphinxsys_jax.core.generators import generate_lattice
+from sphinxsys_jax.core.state import make_fluid_state
+from sphinxsys_jax.neighbors import grid_from_bounds, build_cell_table, build_neighbor_list
+from sphinxsys_jax.physics import fluid as fd
+from sphinxsys_jax.physics import viscosity as vc
 
 
 def make_sheared_lattice(gamma=2.0, dx=0.05):

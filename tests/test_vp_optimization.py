@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import vp_heat_flux_2d as vp
+from sphinxsys_jax.cases import vp_heat_flux_2d as vp
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

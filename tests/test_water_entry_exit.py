@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphinxsys_tpu.cases import water_entry_exit_2d as we
+from sphinxsys_jax.cases import water_entry_exit_2d as we
 
 pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 

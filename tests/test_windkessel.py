@@ -5,7 +5,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from sphinxsys_tpu.physics import windkessel as wks
+from sphinxsys_jax.physics import windkessel as wks
 
 
 def run_ode(q_fn, Rp, C, Rd, dt, n_steps, p0=0.0):
@@ -54,9 +54,9 @@ def test_pulsatile_flow_matches_impedance():
 
 
 def test_pressure_condition_imposes_on_buffer_region():
-    from sphinxsys_tpu.core.state import make_fluid_state
-    from sphinxsys_tpu.core.materials import WeaklyCompressibleFluid
-    from sphinxsys_tpu.physics.boundary import AlignedBoxRegion
+    from sphinxsys_jax.core.state import make_fluid_state
+    from sphinxsys_jax.core.materials import WeaklyCompressibleFluid
+    from sphinxsys_jax.physics.boundary import AlignedBoxRegion
 
     pos = np.asarray([[0.1, 0.5], [0.95, 0.5], [0.99, 0.2]])
     fluid = dict(make_fluid_state(pos, 0.01, 1.0))

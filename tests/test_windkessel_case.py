@@ -12,7 +12,7 @@ pytestmark = pytest.mark.slow  # integration tier (full suite: pytest -m '')
 def test_inflow_waveform_matches_reference_series():
     """The 8-harmonic clamped waveform (cpp:104-123): periodic with the
     1 s cardiac cycle, mean ~ 0.23, peak during systole."""
-    from sphinxsys_tpu.cases.channel_windkessel_2d import inflow_velocity
+    from sphinxsys_jax.cases.channel_windkessel_2d import inflow_velocity
 
     t = np.linspace(0.0, 1.0, 201)
     u = np.asarray([float(inflow_velocity(jnp.asarray(tt))) for tt in t])
@@ -29,7 +29,7 @@ def test_windkessel_channel_pressure_responds():
     inflow and the windkessel outlet pressure rises from the 80 mmHg
     baseline as flow accumulates (the reference's regression quantity is
     this pressure/flow coupling)."""
-    from sphinxsys_tpu.cases import channel_windkessel_2d as cw
+    from sphinxsys_jax.cases import channel_windkessel_2d as cw
 
     case, fluid = cw.build_case()
     s = cw.init_sim(case, fluid)

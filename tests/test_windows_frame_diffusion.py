@@ -35,7 +35,7 @@ def _read_mean():
 def test_windows_frame_tracks_reference_ensemble_mean():
     """Full 11-snapshot trajectory of the 5 observer temperatures within
     0.25 C of the reference ensemble mean (initial spread is 20 C)."""
-    from sphinxsys_tpu.cases import windows_frame_diffusion_2d as wf
+    from sphinxsys_jax.cases import windows_frame_diffusion_2d as wf
 
     ref = _read_mean()
     case = wf.build_case()
